@@ -2,19 +2,25 @@
 """Smoke test of the PyTorch/CUDA port (``cs744_ddp_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --time-only [--root DIR]
 
 Phases, in order; any failure exits non-zero:
   1. build   — compile the CUDA kernels from ``cs744_ddp_tpu_torch/ops/csrc``
                into ``build/kernels/`` (nvcc, sm_90a) and load them;
   2. check   — each kernel against its plain PyTorch version on the card, at
-               the five VGG-11 pool-block shapes at batch 256 in f32
-               (rtol 5e-4 / atol 1e-4: reduction order is the only
-               difference), plus bf16 at the first shape (at most 2e-4 of dx
-               elements differ by > 0.05, each at a near-tie);
+               the five VGG-11 pool-block shapes at batch 256 and at one
+               ragged shape (a short last block, C not a multiple of 32) in
+               f32 (rtol 5e-4 / atol 1e-4: reduction order is the only
+               difference), the sums bitwise equal run to run, plus bf16 at
+               the first and last shapes (at most 2e-4 of dx elements differ
+               by > 0.05, each at a near-tie); and the sums captured in a
+               CUDA graph, replayed on another stream beside an eager call,
+               bitwise equal to the eager sums;
   3. time    — per shape: kernel time (median of CUDA-event timings, L2
-               flushed before each launch), its byte bound, the plain
-               version's time, and the backward of the unfused library chain
-               (batch_norm -> relu -> max_pool2d) as a reference point;
+               flushed before each launch), its byte bound and the share of
+               it reached, the plain version's time, and the backward of the
+               unfused library chain (batch_norm -> relu -> max_pool2d) as a
+               reference point;
   4. train   — ``Trainer("vgg11", "single", global_batch=256)`` runs 40
                augmented steps and a 5-batch eval on the synthetic split:
                finite losses that fall from the first 20-step window to the
@@ -23,14 +29,21 @@ Phases, in order; any failure exits non-zero:
   5. report  — the ``kernels`` JSON line, the card's name and power limit,
                and as the last line ``{"ok": true, "device": {...}}``.
 
+``--time-only`` runs phases 1 and 3 and stops.  ``--root DIR`` times the
+kernels of the checkout at DIR instead (for example the parent commit,
+unpacked with ``git archive``), so that two versions are compared in one
+run on one card.
+
 Without a CUDA device it exits with code 2 and prints no result.  It
 imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -40,15 +53,20 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
-# f32 operations per element of xhat, counted from the kernels' source:
-# routing (mul, add, max per element, 3 max and 4 compare/select per
-# window) plus phase 1's two products and sums, phase 2's dx formula.
-SUMS_OPS_PER_ELEM = 9
+# f32 operations per element of xhat, counted from the kernels' source.
+# Sums, per window: mul, add, max per element (12), the window max (3),
+# the first maximal element (3 compares, 3 selects), the gate and two sums
+# (4): 25.  dx: the routing per element plus the dx formula.
+SUMS_OPS_PER_ELEM = 7
 DX_OPS_PER_ELEM = 12
 BATCH = 256
 # [N, C, H, W] of the five pool blocks of VGG-11 at batch 256 (s0..s4).
 SHAPES = [(BATCH, 64, 32, 32), (BATCH, 128, 16, 16), (BATCH, 256, 8, 8),
           (BATCH, 512, 4, 4), (BATCH, 512, 2, 2)]
+# 387 pooled rows of 3 windows and 24 channel vectors (16 of the 256
+# threads idle): in f32 129 blocks, whose first 32 add up the partials
+# 4 float4 columns each, the last of them 0 (48 columns in all).
+RAGGED = (129, 96, 6, 6)
 TRAIN_STEPS = 40
 EVAL_BATCHES = 5
 RTOL, ATOL = 5e-4, 1e-4
@@ -118,19 +136,48 @@ def phase_build():
           f"{time.perf_counter() - t0:.2f} s")
 
 
+def check_sums_bitwise(bnpool, xhat, dp, gamma, beta, label):
+    """The sums of two calls bitwise equal; the first call's sums."""
+    sums = bnpool.bnpool_sums(xhat, dp, gamma, beta)
+    check(torch.equal(sums, bnpool.bnpool_sums(xhat, dp, gamma, beta)),
+          f"{label}: sums not bitwise reproducible")
+    return sums
+
+
+def check_sums_in_graph(bnpool, xhat, dp, gamma, beta, label):
+    """The sums captured in a CUDA graph on one stream and replayed on
+    another, beside an eager call on the current stream, bitwise equal to
+    the eager sums."""
+    eager = bnpool.bnpool_sums(xhat, dp, gamma, beta)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+        captured = bnpool.bnpool_sums(xhat, dp, gamma, beta)
+    replay = torch.cuda.Stream()
+    for _ in range(3):
+        replay.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(replay):
+            graph.replay()
+        alongside = bnpool.bnpool_sums(xhat, dp, gamma, beta)
+        torch.cuda.synchronize()
+        check(torch.equal(captured, eager) and torch.equal(alongside, eager),
+              f"{label}: sums in a CUDA graph differ from eager sums")
+    print(f"[check] {label}: sums captured in a CUDA graph and replayed on "
+          f"another stream beside an eager call: bitwise equal  ok")
+
+
 def phase_check(errs):
     from cs744_ddp_tpu_torch.ops import bnpool
-    for k, shape in enumerate(SHAPES):
+    for k, shape in enumerate(SHAPES + [RAGGED]):
         _, xhat, dp, gamma, beta, inv = inputs(shape, torch.float32, k)
         got = bnpool.bnpool_backward(xhat, dp, gamma, beta, inv)
         want = bnpool.bnpool_backward_reference(xhat, dp, gamma, beta, inv)
         for a, b, name in zip(got, want, ("dx", "sum_dy", "sum_dy_xhat")):
             torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL,
                                        msg=lambda m: f"{shape} {name}: {m}")
-        sums = bnpool.bnpool_sums(xhat, dp, gamma, beta)
-        check(torch.equal(sums, bnpool.bnpool_sums(xhat, dp, gamma, beta)),
-              f"{shape}: sums kernel not bitwise reproducible")
         sums_ref = bnpool.bnpool_sums_reference(xhat, dp, gamma, beta)
+        sums = check_sums_bitwise(bnpool, xhat, dp, gamma, beta,
+                                  f"f32 {shape}")
         dx = bnpool.bnpool_dx(xhat, dp, gamma, beta, inv, sums_ref)
         dx_ref = bnpool.bnpool_dx_reference(xhat, dp, gamma, beta, inv,
                                             sums_ref)
@@ -139,27 +186,37 @@ def phase_check(errs):
         errs["bnpool_sums"] = max(errs["bnpool_sums"], e_sums)
         errs["bnpool_dx"] = max(errs["bnpool_dx"], e_dx)
         torch.cuda.synchronize()
-        print(f"[check] f32 {shape}: max|sums err| {e_sums:.3e}  "
-              f"max|dx err| {e_dx:.3e}  ok")
+        print(f"[check] f32 {shape}: max|sums err| {e_sums:.3e} (bitwise "
+              f"run to run)  max|dx err| {e_dx:.3e}  ok")
+    check_sums_in_graph(bnpool, xhat, dp, gamma, beta, f"f32 {RAGGED}")
 
-    shape = SHAPES[0]
-    _, xhat, dp, gamma, beta, inv = inputs(shape, torch.bfloat16, 99)
-    dx = bnpool.bnpool_backward(xhat, dp, gamma, beta, inv)[0].float()
-    dx_ref = bnpool.bnpool_backward_reference(xhat, dp, gamma, beta,
-                                              inv)[0].float()
-    flips = ((dx - dx_ref).abs() > 0.05).nonzero()
-    check(len(flips) <= 2e-4 * dx.numel(),
-          f"bf16 {shape}: {len(flips)} dx elements differ by > 0.05")
-    z = (xhat.float() * gamma.view(1, -1, 1, 1) + beta.view(1, -1, 1, 1))
-    y = z.to(torch.bfloat16).float().clamp_min(0)
-    for n, c, h, w in flips[:64].tolist():
-        win = y[n, c, h // 2 * 2:h // 2 * 2 + 2,
-                w // 2 * 2:w // 2 * 2 + 2].flatten().sort().values
-        rel = float((win[-1] - win[-2]).abs() / (win[-1].abs() + 1e-9))
-        check(rel < 2e-2, f"bf16 flip at {(n, c, h, w)} is no near-tie")
-    torch.cuda.synchronize()
-    print(f"[check] bf16 {shape}: {len(flips)} flip(s) of "
-          f"{dx.numel()} elements  ok")
+    for shape in (SHAPES[0], SHAPES[-1]):
+        _, xhat, dp, gamma, beta, inv = inputs(shape, torch.bfloat16, 99)
+        sums_ref = bnpool.bnpool_sums_reference(xhat, dp, gamma, beta)
+        sums = check_sums_bitwise(bnpool, xhat, dp, gamma, beta,
+                                  f"bf16 {shape}")
+        torch.testing.assert_close(
+            sums, sums_ref, rtol=RTOL, atol=ATOL,
+            msg=lambda m: f"bf16 {shape} sums: {m}")
+        e_sums = float((sums - sums_ref).abs().max())
+        dx = bnpool.bnpool_backward(xhat, dp, gamma, beta, inv)[0].float()
+        dx_ref = bnpool.bnpool_backward_reference(xhat, dp, gamma, beta,
+                                                  inv)[0].float()
+        flips = ((dx - dx_ref).abs() > 0.05).nonzero()
+        check(len(flips) <= 2e-4 * dx.numel(),
+              f"bf16 {shape}: {len(flips)} dx elements differ by > 0.05")
+        z = (xhat.float() * gamma.view(1, -1, 1, 1)
+             + beta.view(1, -1, 1, 1))
+        y = z.to(torch.bfloat16).float().clamp_min(0)
+        for n, c, h, w in flips[:64].tolist():
+            win = y[n, c, h // 2 * 2:h // 2 * 2 + 2,
+                    w // 2 * 2:w // 2 * 2 + 2].flatten().sort().values
+            rel = float((win[-1] - win[-2]).abs() / (win[-1].abs() + 1e-9))
+            check(rel < 2e-2, f"bf16 flip at {(n, c, h, w)} is no near-tie")
+        torch.cuda.synchronize()
+        print(f"[check] bf16 {shape}: max|sums err| {e_sums:.3e} (bitwise "
+              f"run to run); {len(flips)} dx flip(s) of {dx.numel()} "
+              f"elements  ok")
 
 
 def chain_backward(x, gamma, beta, dp):
@@ -206,7 +263,8 @@ def phase_time(card_line):
             t["bound_ms"] += bound_ms
             t["bytes"] += nbytes
             t["ops"] += ops
-            parts.append(f"{name} {ms:.4f} ms (bound {bound_ms:.4f}, plain "
+            parts.append(f"{name} {ms:.4f} ms (bound {bound_ms:.4f}, "
+                         f"{100 * bound_ms / ms:.1f}% of it; plain "
                          f"{plain_ms:.4f})")
         chain_ms = time_ms(chain_backward(x, gamma, beta, dp), 10, flush)
         chain_total += chain_ms
@@ -216,7 +274,8 @@ def phase_time(card_line):
               f"[{card_line}]")
     for name, t in tot.items():
         print(f"[time] per step (5 blocks) {name}: {t['ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.4f} ms ({t['bytes'] / 1e6:.1f} MB), plain "
+              f"{t['bound_ms']:.4f} ms ({t['bytes'] / 1e6:.1f} MB, "
+              f"{100 * t['bound_ms'] / t['ms']:.1f}% of it), plain "
               f"{t['plain_ms']:.4f} ms  [{card_line}]")
     print(f"[time] per step (5 blocks) kernels together "
           f"{tot['bnpool_sums']['ms'] + tot['bnpool_dx']['ms']:.4f} ms vs "
@@ -281,11 +340,19 @@ def phase_train(card_line):
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--time-only", action="store_true",
+                        help="build and time the kernels, nothing else")
+    parser.add_argument("--root", help="time the kernels of the checkout at "
+                        "this directory (implies --time-only)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; nothing was run",
               file=sys.stderr)
         return 2
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
     card_line = card()
     print(f"card: {card_line}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
@@ -294,6 +361,11 @@ def main() -> int:
     phase_build()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.time_only or args.root:
+        from cs744_ddp_tpu_torch.ops import bnpool
+        print(f"[time] kernels of {os.path.dirname(bnpool.__file__)}")
+        phase_time(card_line)
+        return 0
     errs = {"bnpool_sums": 0.0, "bnpool_dx": 0.0}
     phase_check(errs)
     tot = phase_time(card_line)

@@ -35,11 +35,15 @@ import torch.nn.functional as F
 from . import _build
 
 BN_EPS = 1e-5
-# Block rows the sums kernel spreads the windows over: enough blocks of 256
-# threads to fill 132 SMs at 8 blocks each, fixed so the (bitwise
-# reproducible) summation order does not depend on the card.
-_SUM_BLOCKS = 1056
 _SOURCE = "bnpool.cu"
+# The sums kernel (csrc/bnpool.cu): 256 threads a block, each on one
+# 16-byte vector of channels (so C / (16 / itemsize) <= 256), in at most
+# _SUM_BLOCKS blocks.  Fewer blocks mean fewer partials to add up after the
+# grid barrier; more give a small shape more loads in flight.  The grid is
+# launched cooperatively, so it must fit on the card at once: 256 blocks at
+# four a streaming multiprocessor take 64 of an H100's 132.
+_SUM_THREADS = 256
+_SUM_BLOCKS = 256
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -196,18 +200,42 @@ def _check_inputs(xhat, dp, channel_vectors, sums=None) -> None:
         raise ValueError(f"unsupported device {xhat.device}")
 
 
+def sums_partition(n: int, c: int, h: int, w: int, itemsize: int) -> int:
+    """Blocks of the sums kernel for xhat [n, c, h, w] of ``itemsize``-byte
+    elements: one window per thread, at most one block per pooled row, at
+    most _SUM_BLOCKS.  It follows from the shape alone, so the kernel sums
+    in the same order on every card."""
+    lanes = _SUM_THREADS // (c // (16 // itemsize))
+    rows_per_block = max(1, lanes // (w // 2))
+    return min(-(-(n * (h // 2)) // rows_per_block), _SUM_BLOCKS)
+
+
+def _check_vector_path(xhat, tensors) -> None:
+    """What the sums kernel's 16-byte accesses need of CUDA inputs."""
+    vec = 16 // xhat.element_size()
+    c = xhat.shape[1]
+    if c % vec or c // vec > _SUM_THREADS:
+        raise ValueError(f"the sums kernel reads {vec} channels of "
+                         f"{xhat.dtype} per 16-byte vector: C must be a "
+                         f"multiple of {vec} and at most "
+                         f"{vec * _SUM_THREADS}, got {c}")
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("the sums kernel needs 16-byte aligned "
+                             f"tensors; one starts at {t.data_ptr():#x}")
+
+
 def bnpool_sums(xhat, dp, gamma, beta) -> torch.Tensor:
     """Phase 1: [2, C] f32 (sum dy, sum dy*xhat).  CUDA tensors launch the
-    kernel (``bnpool_sums.launches`` counts it); CPU tensors take the plain
-    version."""
+    kernel once (``bnpool_sums.launches`` counts it) or raise; CPU tensors
+    take the plain version."""
     _check_inputs(xhat, dp, (gamma, beta))
     if not xhat.is_cuda:
         return bnpool_sums_reference(xhat, dp, gamma, beta)
+    _check_vector_path(xhat, (xhat, dp, gamma, beta))
     n, c, h, w = xhat.shape
-    nwin = n * (h // 2) * (w // 2)
-    ctiles = -(-c // 32)
-    nparts = max(1, min(-(-nwin // 8), _SUM_BLOCKS // ctiles))
-    partial = torch.empty((nparts, 2, c), dtype=torch.float32,
+    blocks = sums_partition(n, c, h, w, xhat.element_size())
+    partial = torch.empty((blocks, 2, c), dtype=torch.float32,
                           device=xhat.device)
     sums = torch.empty((2, c), dtype=torch.float32, device=xhat.device)
     lib = _build.library(_SOURCE)
@@ -215,8 +243,8 @@ def bnpool_sums(xhat, dp, gamma, beta) -> torch.Tensor:
     with torch.cuda.device(xhat.device):
         stream = torch.cuda.current_stream(xhat.device).cuda_stream
         err = fn(xhat.data_ptr(), dp.data_ptr(), gamma.data_ptr(),
-                 beta.data_ptr(), partial.data_ptr(), sums.data_ptr(),
-                 n, h, w, c, nparts, stream)
+                 beta.data_ptr(), partial.data_ptr(), sums.data_ptr(), n, h,
+                 w, c, blocks, stream)
     _build.check(lib, err, "bnpool_sums")
     bnpool_sums.launches += 1
     return sums

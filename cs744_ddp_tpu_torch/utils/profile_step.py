@@ -6,7 +6,8 @@ Runs the Trainer's step exactly as ``Trainer.train_model`` does (batch 256,
 augmentation on, loss fetched after every step), warms up, then traces
 ``STEPS`` steady steps with ``torch.profiler`` and prints: the wall time per
 step, the device's busy share of it (union of kernel intervals over wall
-time), device time per step by kernel family, and the top kernels.
+time), device time per step by kernel family, each of the port's own
+kernels, and the top kernels.
 """
 
 from __future__ import annotations
@@ -24,8 +25,7 @@ WARMUP = 25
 STEPS = 10
 # Kernel families by name fragment, first match wins.
 FAMILIES = (
-    ("bnpool kernels", ("sums_partial_kernel", "sums_final_kernel",
-                        "dx_kernel")),
+    ("bnpool kernels", ("sums_kernel", "dx_kernel")),
     ("convolution", ("conv", "cudnn", "implicit", "gemm", "winograd", "xmma",
                      "cutlass", "wgrad", "dgrad", "sm90", "sm80")),
     ("batch norm", ("batch_norm", "batchnorm", "welford", "bn_")),
@@ -101,6 +101,10 @@ def main() -> None:
     for fam, us in sorted(by_family.items(), key=lambda kv: -kv[1]):
         print(f"[profile] family {fam}: {us / STEPS / 1e3:.4f} ms/step "
               f"({100 * us / busy:.1f}% of device time)")
+    for name, (us, n) in sorted(by_name.items()):
+        if family(name) == "bnpool kernels":
+            print(f"[profile] bnpool kernel {us / STEPS / 1e3:.4f} ms/step "
+                  f"x{n // STEPS}/step  {name[:110]}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (us, n) in top:
         print(f"[profile] kernel {us / STEPS / 1e3:.4f} ms/step "

@@ -212,18 +212,73 @@ def test_wrapper_counts_only_kernel_launches_and_checks_inputs():
         bnpool.bnpool_sums(xhat, dp.to(torch.bfloat16), g, b)
 
 
+# [N, C, H, W]: the five VGG-11 pool blocks at batch 256, then ragged ones
+# (C not a multiple of 32, odd pooled widths, a single row, tiny C).
+PARTITION_SHAPES = [(256, 64, 32, 32), (256, 128, 16, 16), (256, 256, 8, 8),
+                    (256, 512, 4, 4), (256, 512, 2, 2), (3, 96, 6, 6),
+                    (129, 96, 6, 6), (5, 24, 10, 2), (1, 8, 2, 2)]
+
+
+def _kernel_windows(n, c, h, w, itemsize):
+    """The (pooled row, wo, channel vector) triples each thread of the
+    sums kernel takes, by the kernel's own stepping (csrc/bnpool.cu::sweep):
+    windows grid-stride in (row, wo) order."""
+    blocks = bnpool.sums_partition(n, c, h, w, itemsize)
+    cv_count = c // (16 // itemsize)
+    groups = bnpool._SUM_THREADS // cv_count
+    rows, wo_count = n * (h // 2), w // 2
+    step_r, step_w = divmod(blocks * groups, wo_count)
+    taken = []
+    for b in range(blocks):
+        for g in range(groups):
+            r, wo = divmod(b * groups + g, wo_count)
+            while r < rows:
+                taken += [(r, wo, cv) for cv in range(cv_count)]
+                r, wo = r + step_r, wo + step_w
+                if wo >= wo_count:
+                    r, wo = r + 1, wo - wo_count
+    return blocks, rows * wo_count * cv_count, taken
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("shape", PARTITION_SHAPES)
+def test_sums_partition_covers_every_window_once(shape, itemsize):
+    n, c, h, w = shape
+    blocks, windows, taken = _kernel_windows(n, c, h, w, itemsize)
+    assert 1 <= blocks <= min(bnpool._SUM_BLOCKS, n * (h // 2))
+    assert len(taken) == windows
+    assert len(set(taken)) == windows
+    # The partition is a function of the shape alone.
+    assert blocks == bnpool.sums_partition(n, c, h, w, itemsize)
+
+
+def test_sums_vector_path_checks():
+    x = torch.zeros((2, 12, 4, 4)).contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        bnpool._check_vector_path(x[:, :10], [x])
+    wide = torch.zeros((1, 1032, 2, 2))
+    with pytest.raises(ValueError, match="at most 1024"):
+        bnpool._check_vector_path(wide, [wide])
+    flat = torch.zeros(64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        bnpool._check_vector_path(x, [x, flat[1:13]])
+    bnpool._check_vector_path(x, [x, flat[4:16]])
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(16, 32, 32, 64), (129, 6, 6, 96)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_kernels_match_plain_version(dtype):
+def test_cuda_kernels_match_plain_version(dtype, shape):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    x, gamma, beta, wts = _inputs((16, 32, 32, 64), 5)
+    x, gamma, beta, wts = _inputs(shape, 5)
+    c = shape[-1]
     dev = torch.device("cuda")
     xhat = _nchw(x, dtype).to(dev)
     dp = _nchw(wts, dtype).to(dev)
     g = torch.from_numpy(gamma).to(dev)
     b = torch.from_numpy(beta).to(dev)
-    inv = torch.full((64,), 0.5, device=dev)
+    inv = torch.full((c,), 0.5, device=dev)
     bnpool.reset_launch_counts()
     got = bnpool.bnpool_backward(xhat, dp, g, b, inv)
     torch.cuda.synchronize()
@@ -233,3 +288,36 @@ def test_cuda_kernels_match_plain_version(dtype):
         else dict(rtol=2e-2, atol=2e-2)
     for a, r in zip(got, want):
         torch.testing.assert_close(a.float(), r.float(), **tol)
+    # One launch, no float atomics: the sums are bitwise equal run to run.
+    sums = bnpool.bnpool_sums(xhat, dp, g, b)
+    assert torch.equal(sums, bnpool.bnpool_sums(xhat, dp, g, b))
+    assert torch.equal(sums, torch.stack(got[1:]))
+
+
+@pytest.mark.gpu
+def test_cuda_sums_kernel_in_a_cuda_graph_replayed_on_another_stream():
+    """The sums kernel's grid barrier keeps no state between launches: a
+    graph captured on one stream and replayed on another, next to an eager
+    launch on a third, gives the eager launch's sums bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    x, gamma, beta, wts = _inputs((16, 32, 32, 64), 6)
+    dev = torch.device("cuda")
+    xhat = _nchw(x, torch.float32).to(dev)
+    dp = _nchw(wts, torch.float32).to(dev)
+    g = torch.from_numpy(gamma).to(dev)
+    b = torch.from_numpy(beta).to(dev)
+    eager = bnpool.bnpool_sums(xhat, dp, g, b)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+        captured = bnpool.bnpool_sums(xhat, dp, g, b)
+    replay = torch.cuda.Stream()
+    for _ in range(3):
+        replay.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(replay):
+            graph.replay()
+        alongside = bnpool.bnpool_sums(xhat, dp, g, b)
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+        assert torch.equal(alongside, eager)
