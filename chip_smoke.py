@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero:
   1. build   — compile the CUDA kernels from ``cs744_ddp_tpu_torch/ops/csrc``
                into ``build/kernels/`` (nvcc, sm_90a) and load them;
   2. check   — each kernel against its plain PyTorch version on the card, at
-               the five VGG-11 pool-block shapes at batch 256 and at one
+               the five VGG-11 pool-block shapes at batch 256, 128 and 64
+               (the per-rank shapes at world 1, 2 and 4) and at one
                ragged shape (a short last block, C not a multiple of 32) in
                f32 (rtol 5e-4 / atol 1e-4: reduction order is the only
                difference), the sums bitwise equal run to run, plus bf16 at
@@ -26,7 +27,19 @@ Phases, in order; any failure exits non-zero:
                finite losses that fall from the first 20-step window to the
                second, each kernel launched 5 times per step, and the
                model's logits agreeing with a CPU run on a small batch;
-  5. report  — the ``kernels`` JSON line, the card's name and power limit,
+  5. strategies — every gradient-sync tier at world 1 over NCCL (a world-1
+               group in this process), VGG-11 at batch 256, 40 augmented
+               steps each: finite losses that fall from the first 20-step
+               window to the second, the collective counts of every step,
+               each kernel launched 5 times per step, and the steady step
+               time and images/s; then, with deterministic cuDNN, each
+               stateless tier bitwise equal to ``single`` after 20 steps.
+               With two or more GPUs, every tier also trains 40 steps on
+               2 and ``min(4, count)`` NCCL ranks (the CLI's
+               ``--num-devices``): the reference's dataset-size lines for
+               that world, falling losses, rank 0's steady step time, and
+               bitwise equal parameters on every rank at the end;
+  6. report  — the ``kernels`` JSON line, the card's name and power limit,
                and as the last line ``{"ok": true, "device": {...}}``.
 
 ``--time-only`` runs phases 1 and 3 and stops.  ``--root DIR`` times the
@@ -44,9 +57,11 @@ import argparse
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -63,6 +78,9 @@ BATCH = 256
 # [N, C, H, W] of the five pool blocks of VGG-11 at batch 256 (s0..s4).
 SHAPES = [(BATCH, 64, 32, 32), (BATCH, 128, 16, 16), (BATCH, 256, 8, 8),
           (BATCH, 512, 4, 4), (BATCH, 512, 2, 2)]
+# The same blocks at the per-rank batches of worlds 2 and 4.
+CHECK_SHAPES = SHAPES + [(n, c, h, w) for n in (BATCH // 2, BATCH // 4)
+                         for _, c, h, w in SHAPES]
 # 387 pooled rows of 3 windows and 24 channel vectors (16 of the 256
 # threads idle): in f32 129 blocks, whose first 32 add up the partials
 # 4 float4 columns each, the last of them 0 (48 columns in all).
@@ -70,6 +88,18 @@ RAGGED = (129, 96, 6, 6)
 TRAIN_STEPS = 40
 EVAL_BATCHES = 5
 RTOL, ATOL = 5e-4, 1e-4
+TIERS = ("gather", "allreduce", "ddp", "overlap", "compress-bf16",
+         "compress-int8", "powersgd")
+STATELESS = TIERS[:4]
+BITWISE_STEPS = 20
+# Collectives per VGG-11 step (34 parameters, two 25 MiB buckets, 9
+# low-rank leaves), by kind.
+STEP_COUNTS = {
+    "gather": {"gather": 34, "scatter": 34}, "allreduce": {"all_reduce": 34},
+    "ddp": {"all_reduce": 2}, "overlap": {"all_reduce": 2},
+    "compress-bf16": {"all_reduce": 34},
+    "compress-int8": {"all_reduce": 34, "all_reduce_max": 1},
+    "powersgd": {"all_reduce": 2 * 9 + 25}}
 
 
 class SmokeFailure(RuntimeError):
@@ -168,7 +198,7 @@ def check_sums_in_graph(bnpool, xhat, dp, gamma, beta, label):
 
 def phase_check(errs):
     from cs744_ddp_tpu_torch.ops import bnpool
-    for k, shape in enumerate(SHAPES + [RAGGED]):
+    for k, shape in enumerate(CHECK_SHAPES + [RAGGED]):
         _, xhat, dp, gamma, beta, inv = inputs(shape, torch.float32, k)
         got = bnpool.bnpool_backward(xhat, dp, gamma, beta, inv)
         want = bnpool.bnpool_backward_reference(xhat, dp, gamma, beta, inv)
@@ -340,6 +370,145 @@ def phase_train(card_line):
     return launches
 
 
+def train_tier(tier, steps, log=lambda s: None):
+    """A fresh VGG-11 Trainer of ``tier`` trained ``steps`` augmented steps
+    from the same seed, its kernel launches counted from 0."""
+    from cs744_ddp_tpu_torch.ops import bnpool
+    from cs744_ddp_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(model="vgg11", strategy=tier, global_batch=BATCH,
+                      augment=True, limit_train_batches=steps, log=log)
+    bnpool.reset_launch_counts()
+    trainer.train_model(0)
+    torch.cuda.synchronize()
+    return trainer, {"bnpool_sums": bnpool.bnpool_sums.launches,
+                     "bnpool_dx": bnpool.bnpool_dx.launches}
+
+
+def spawn_world(world, tier, out_dir, card_line):
+    """``world`` NCCL ranks of the CLI (``--num-devices``) training
+    ``tier`` 40 steps: the reference's dataset-size lines for that world,
+    finite losses that fall from the first 20-step window to the second,
+    and every rank's final parameters bitwise equal to rank 0's."""
+    import re
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    save = os.path.join(out_dir, f"{tier}_w{world}")
+    cmd = [sys.executable, "-m", "cs744_ddp_tpu_torch.cli",
+           "--num-devices", str(world), "--strategy", tier,
+           "--limit-train-batches", str(TRAIN_STEPS),
+           "--limit-eval-batches", "2", "--port", str(port), "--save", save]
+    t0 = time.perf_counter()
+    # A session of its own, so that a timeout kills the ranks it spawned.
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SmokeFailure(f"{world} NCCL ranks of {tier}: no end in 600 s")
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{world} NCCL ranks of {tier} failed:\n"
+          f"{stdout[-3000:]}\n{stderr[-3000:]}")
+    per = BATCH // world
+    for line in (f"Size of training set is {-(-(-(-50000 // world)) // per)}",
+                 f"Size of test set is {-(-10000 // per)}"):
+        check(line in stdout.splitlines(),
+              f"{tier} at world {world}: no line {line!r}")
+    losses = [float(v) for v in re.findall(
+        r"Training loss after \d+ iterations is (\S+)", stdout)]
+    check(len(losses) == 2 and all(math.isfinite(v) for v in losses)
+          and losses[1] < losses[0],
+          f"{tier} at world {world}: window losses {losses}")
+    step_s = float(re.search(r"Average Pass time in iter 40 is (\S+)",
+                             stdout).group(1))
+    sds = [torch.load(os.path.join(save, f"rank{r}.pt"), map_location="cpu")
+           for r in range(world)]
+    for r, sd in enumerate(sds[1:], 1):
+        for k, v in sd.items():
+            check(torch.equal(v, sds[0][k]),
+                  f"{tier} at world {world}: rank {r} differs in {k}")
+    print(f"[strategies] {tier:13s} world {world} NCCL ({world} processes): "
+          f"steady step {1e3 * step_s:.3f} ms, {BATCH / step_s:.1f} images/s "
+          f"(rank 0's steps 21-40, global batch {BATCH}); loss "
+          f"{losses[0]:.4f} -> {losses[1]:.4f}; parameters and BN "
+          f"statistics bitwise equal on every rank; {wall:.1f} s  ok  "
+          f"[{card_line}]")
+
+
+def phase_strategies(card_line):
+    """Every tier at world 1 over NCCL; see the module docstring.  No
+    group exists before the first Trainer: it makes the world-1 group
+    itself, as it does for a user who started no launcher."""
+    import torch.distributed as dist
+
+    check(not dist.is_initialized(), "a process group exists already")
+    launches = {}
+    for tier in TIERS:
+        t0 = time.perf_counter()
+        trainer, launched = train_tier(tier, TRAIN_STEPS)
+        wall = time.perf_counter() - t0
+        check(dist.get_backend() == "nccl" and trainer.world == 1,
+              f"{tier}: expected a world-1 NCCL group, got "
+              f"{dist.get_backend()} at world {trainer.world}")
+        launches[tier] = launched
+        losses = trainer.last_epoch_timers.losses
+        check(len(losses) == TRAIN_STEPS and
+              all(math.isfinite(v) for v in losses),
+              f"{tier}: losses {losses}")
+        first, second = (statistics.mean(losses[:20]),
+                         statistics.mean(losses[20:40]))
+        check(second < first, f"{tier}: loss did not fall: {first} -> "
+              f"{second}")
+        want = {k: n * TRAIN_STEPS for k, n in STEP_COUNTS[tier].items()}
+        counts = dict(trainer.group.total_counts)
+        check(counts == want, f"{tier}: collectives {counts} in "
+              f"{TRAIN_STEPS} steps, want {want}")
+        for name, n in launched.items():
+            check(n == 5 * TRAIN_STEPS,
+                  f"{tier}: {name} launched {n} times in {TRAIN_STEPS} steps")
+        timers = trainer.last_epoch_timers
+        step_ms = 1e3 * statistics.mean(timers.steady_step_times)
+        ips = timers.steady_images_per_sec(BATCH)
+        print(f"[strategies] {tier:13s} world 1 NCCL: steady step "
+              f"{step_ms:.3f} ms, {ips:.1f} images/s (steps 21-40, batch "
+              f"{BATCH}); loss {first:.4f} -> {second:.4f}; collectives per "
+              f"step {STEP_COUNTS[tier]}; launches {launched}; "
+              f"{wall:.1f} s  [{card_line}]")
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        want = train_tier("single", BITWISE_STEPS)[0].state.model.state_dict()
+        for tier in ("single",) + STATELESS:     # single: run to run
+            got = train_tier(tier, BITWISE_STEPS)[0].state.model.state_dict()
+            for k, v in want.items():
+                check(torch.equal(got[k], v),
+                      f"{tier} at world 1 differs from single in {k}")
+            print(f"[strategies] {tier} at world 1, deterministic cuDNN: "
+                  f"parameters and BN statistics after {BITWISE_STEPS} "
+                  f"steps bitwise equal to single  ok")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    dist.destroy_process_group()
+
+    count = torch.cuda.device_count()
+    if count >= 2:
+        with tempfile.TemporaryDirectory() as out_dir:
+            for world in sorted({2, min(4, count)}):
+                for tier in TIERS:
+                    spawn_world(world, tier, out_dir, card_line)
+    else:
+        print(f"[strategies] world > 1 was not run on this machine: "
+              f"{count} GPU")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--time-only", action="store_true",
@@ -370,6 +539,7 @@ def main(argv=None) -> int:
     phase_check(errs)
     tot = phase_time(card_line)
     launches = phase_train(card_line)
+    by_path = {"single": launches, **phase_strategies(card_line)}
 
     replaces = {"bnpool_sums": "cs744_ddp_tpu/ops/bnpool_pallas.py:147",
                 "bnpool_dx": "cs744_ddp_tpu/ops/bnpool_pallas.py:184"}
@@ -381,9 +551,13 @@ def main(argv=None) -> int:
         "plain_ms": tot[name]["plain_ms"], "bound_ms": tot[name]["bound_ms"],
         "bound_by": ("bytes" if tot[name]["bytes"] / HBM_BYTES_PER_S
                      >= tot[name]["ops"] / F32_OPS_PER_S else "operations"),
-        "library_ms": None} for name in ("bnpool_sums", "bnpool_dx")]
+        "library_ms": None,
+        "launches_by_path": {p: n[name] for p, n in by_path.items()}}
+        for name in ("bnpool_sums", "bnpool_dx")]
     print(f"[done] {time.perf_counter() - t_all:.1f} s; ms, plain_ms and "
-          f"bound_ms are per training step (5 pool blocks)")
+          f"bound_ms are per training step (5 pool blocks); launches is the "
+          f"single path's, launches_by_path each path's ({TRAIN_STEPS} "
+          f"steps)")
     print(json.dumps({"kernels": kernels}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

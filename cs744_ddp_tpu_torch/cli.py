@@ -1,20 +1,33 @@
-"""Command line of the port: train VGG-11 on CIFAR-10 with the ``single``
-strategy on one GPU, with the reference training script's print schedule.
+"""Command line of the port: train VGG-11 on CIFAR-10 with any
+gradient-sync strategy, one process per GPU, with the reference training
+script's print schedule.
 
-    python -m cs744_ddp_tpu_torch.cli --strategy single
-    python -m cs744_ddp_tpu_torch.cli --limit-train-batches 40
+    python -m cs744_ddp_tpu_torch.cli                            # allreduce, 1 GPU
+    python -m cs744_ddp_tpu_torch.cli --num-devices 4 --strategy ddp
+    python -m cs744_ddp_tpu_torch.cli --device cpu --num-devices 2
+    # one process per node, the reference's launch:
+    python -m cs744_ddp_tpu_torch.cli --master HOST --num-nodes 2 --rank 0
 
-Without ``cifar-10-batches-py`` under ``--data-dir`` the deterministic
-synthetic stand-in is used.  ``--device cpu`` runs on the CPU (slow: the
-CUDA kernels' plain versions replace them there).
+``--num-devices N`` spawns N local ranks: one per GPU over NCCL, or with
+``--device cpu`` N processes over gloo.  Without it the process is one rank
+of ``--num-nodes`` (a world-1 group when that is 1).  Without
+``cifar-10-batches-py`` under ``--data-dir`` the deterministic synthetic
+stand-in is used.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Optional, Sequence
 
+import torch
+import torch.distributed as dist
+
+from .device import resolve_device
+from .ops import _build
 from .ops.sgd import SGDConfig
+from .parallel.mesh import DEFAULT_PORT, initialize_distributed
 from .train.loop import GLOBAL_BATCH, STRATEGIES, Trainer
 
 
@@ -22,11 +35,28 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
         prog="python -m cs744_ddp_tpu_torch.cli",
         description="Train VGG-11 on CIFAR-10 (PyTorch/CUDA port).")
-    p.add_argument("--strategy", default="single",
-                   help=f"gradient-sync strategy; ported so far: {STRATEGIES}")
+    p.add_argument("--master", "--coordinator", dest="master", default=None,
+                   help="rendezvous host of a multi-process run "
+                        "(reference --master)")
+    p.add_argument("--num-nodes", "--num-processes", dest="num_nodes",
+                   type=int, default=1,
+                   help="number of launched processes (reference "
+                        "--num-nodes); with --num-devices, of nodes")
+    p.add_argument("--rank", "--process-id", dest="rank", type=int,
+                   default=0, help="this process's (node's) rank "
+                                   "(reference --rank)")
+    p.add_argument("--port", type=int, default=DEFAULT_PORT,
+                   help="rendezvous port (reference hardcodes 6585)")
+    p.add_argument("--num-devices", type=int, default=None,
+                   help="spawn this many local ranks: one per GPU (NCCL), "
+                        "or processes with --device cpu (gloo)")
+    p.add_argument("--strategy", default="allreduce", choices=STRATEGIES,
+                   help="gradient-sync strategy")
+    p.add_argument("--compress-rank", type=int, default=None,
+                   help="PowerSGD approximation rank (default 4)")
     p.add_argument("--epochs", type=int, default=1)
     p.add_argument("--batch-size", type=int, default=GLOBAL_BATCH,
-                   help="global batch size")
+                   help="global batch size, split across the ranks")
     p.add_argument("--lr", type=float, default=0.1)
     p.add_argument("--momentum", type=float, default=0.9)
     p.add_argument("--weight-decay", type=float, default=1e-4)
@@ -37,20 +67,67 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--data-dir", default="./data")
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")
+    p.add_argument("--save", default=None, metavar="DIR",
+                   help="write each rank's final model state_dict to "
+                        "DIR/rank<r>.pt")
     return p.parse_args(argv)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
-    args = parse_args(argv)
+def _train(args: argparse.Namespace) -> None:
     trainer = Trainer(
-        "vgg11", args.strategy, global_batch=args.batch_size,
-        data_dir=args.data_dir, device=args.device,
-        augment=not args.no_augment,
+        "vgg11", args.strategy, compress_rank=args.compress_rank,
+        global_batch=args.batch_size, data_dir=args.data_dir,
+        device=args.device, augment=not args.no_augment,
         sgd_cfg=SGDConfig(lr=args.lr, momentum=args.momentum,
                           weight_decay=args.weight_decay),
         limit_train_batches=args.limit_train_batches,
         limit_eval_batches=args.limit_eval_batches)
     trainer.run(args.epochs)
+    if args.save:
+        os.makedirs(args.save, exist_ok=True)
+        torch.save(trainer.state.model.state_dict(),
+                   os.path.join(args.save, f"rank{trainer.rank}.pt"))
+
+
+def _spawned_rank(local: int, args: argparse.Namespace) -> None:
+    """One of ``--num-devices`` local ranks."""
+    world = args.num_nodes * args.num_devices
+    if resolve_device(args.device).type == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                                  // args.num_devices))
+    initialize_distributed(args.master or "127.0.0.1", world,
+                           args.rank * args.num_devices + local, args.port,
+                           args.device, local_rank=local)
+    try:
+        _train(args)
+    finally:
+        dist.destroy_process_group()
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    args = parse_args(argv)
+    if args.num_devices is None:
+        if args.num_nodes > 1:
+            initialize_distributed(args.master, args.num_nodes, args.rank,
+                                   args.port, args.device)
+        try:
+            _train(args)
+        finally:
+            if dist.is_initialized():     # also the Trainer's world-1 group
+                dist.destroy_process_group()
+        return
+    if args.num_devices < 1:
+        raise SystemExit("--num-devices must be >= 1")
+    if args.num_nodes > 1 and args.master is None:
+        raise SystemExit("a multi-node run requires --master")
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        if args.num_devices > torch.cuda.device_count():
+            raise SystemExit(f"--num-devices {args.num_devices}: only "
+                             f"{torch.cuda.device_count()} GPUs present")
+        _build.build()      # once here, not once per rank
+    torch.multiprocessing.spawn(_spawned_rank, args=(args,),
+                                nprocs=args.num_devices, join=True)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""Model zoo of the port: the VGG family (VGG-11 is the reference's model)."""
+"""Model zoo of the port: the VGG family (VGG-11 is the reference's model),
+any configuration in ``vgg.CFG`` by its lower-case name."""
 
 from __future__ import annotations
 
@@ -10,10 +11,10 @@ from . import layers, vgg
 def get_model(name: str, seed: int = 0) -> vgg.VGG:
     """A freshly initialized model on the CPU, its weights drawn from a
     ``torch.Generator`` seeded with ``seed``."""
-    key = name.lower()
-    if key not in ("vgg11", "vgg13", "vgg16", "vgg19"):
-        raise ValueError(f"model {name!r} is not yet ported; expected "
-                         f"vgg11/13/16/19")
-    model = vgg.VGG(key.upper())
+    key = name.upper()
+    if key not in vgg.CFG:
+        raise ValueError(f"model {name!r} is not yet ported; expected one "
+                         f"of {sorted(k.lower() for k in vgg.CFG)}")
+    model = vgg.VGG(key)
     layers.reset_parameters(model, torch.Generator().manual_seed(seed))
     return model

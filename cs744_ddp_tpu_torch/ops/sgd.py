@@ -11,7 +11,7 @@ package's ``ops/sgd.py`` (element-equal, tests/test_torch_port_train.py).
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence
+from typing import Any, List, NamedTuple, Sequence
 
 import torch
 
@@ -24,6 +24,10 @@ class SGDConfig(NamedTuple):
 
 class SGDState(NamedTuple):
     momentum: List[torch.Tensor]   # one velocity buffer per parameter
+    # A compressed strategy's state for THIS rank (error-feedback
+    # residuals, PowerSGD Q factors: parallel/strategies.py); None for the
+    # stateless strategies.  The reference package stacks every worker's.
+    comm: Any = None
 
 
 def init(params: Sequence[torch.Tensor]) -> SGDState:

@@ -1,0 +1,145 @@
+"""Process-group bootstrap and the counting layer of the strategies'
+collectives.
+
+The reference package's mesh (``parallel/mesh.py`` there) is a 1-D device
+mesh driven by one process.  The port follows the reference training
+script's own launch model instead: one OS process per GPU, rendezvousing
+over ``torch.distributed`` (``Part 2a/main.py:148-153``: MASTER_ADDR, port
+6585, ``init_process_group``).  The backend follows the device: NCCL on
+``cuda``, gloo on ``cpu``, and never the one in place of the other.
+
+A process that no launcher started gets a world-1 group in the process
+(``initialize_distributed()`` with no address), so every strategy runs on
+one card, as the reference package runs ``allreduce`` on a 1-device mesh.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+from typing import List, Optional, Sequence, Union
+
+import torch
+import torch.distributed as dist
+
+from ..device import resolve_device
+
+DEFAULT_PORT = 6585   # the reference hardcodes it (Part 2a/main.py:172)
+
+
+def backend_for(device: torch.device) -> str:
+    return "nccl" if device.type == "cuda" else "gloo"
+
+
+def initialize_distributed(master: Optional[str] = None,
+                           num_processes: int = 1, rank: int = 0,
+                           port: int = DEFAULT_PORT,
+                           device: Optional[Union[str, torch.device]] = None,
+                           *, init_method: Optional[str] = None,
+                           local_rank: Optional[int] = None) -> torch.device:
+    """Join (or create) the default process group; returns this rank's
+    device.
+
+    ``master`` is the rendezvous host (``host`` or ``host:port``), or give
+    ``init_method`` (for example a ``file://`` path) instead.  A
+    multi-process run without either raises, as the reference makes
+    ``--master`` required.  One process with neither gets a world-1 group
+    in the process.  On ``cuda`` the process takes GPU ``local_rank``
+    (default ``rank`` modulo the GPUs present) before the group forms.  A
+    group that exists already is reused if its backend fits ``device`` and
+    refused otherwise."""
+    dev = resolve_device(device)
+    backend = backend_for(dev)
+    if dist.is_initialized():
+        check_backend(dev)
+        if num_processes > 1 and dist.get_world_size() != num_processes:
+            raise RuntimeError(
+                f"a process group of world {dist.get_world_size()} exists; "
+                f"cannot join one of world {num_processes}")
+        return _current(dev)
+    if num_processes < 1 or not 0 <= rank < num_processes:
+        raise ValueError(f"rank {rank} out of range for world "
+                         f"{num_processes}")
+    if num_processes > 1 and master is None and init_method is None:
+        raise ValueError(f"multi-process run (num_processes = "
+                         f"{num_processes}) requires a master address")
+    kwargs = {}
+    if dev.type == "cuda":
+        local = rank % torch.cuda.device_count() if local_rank is None \
+            else local_rank
+        torch.cuda.set_device(local)
+        dev = torch.device("cuda", local)
+        kwargs["device_id"] = dev
+    if init_method is None and master is None:
+        kwargs["store"] = dist.HashStore()
+    elif init_method is None:
+        addr = master if ":" in master else f"{master}:{port}"
+        init_method = f"tcp://{addr}"
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=num_processes, **kwargs)
+    return dev
+
+
+def _current(dev: torch.device) -> torch.device:
+    if dev.type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def check_backend(device: torch.device) -> None:
+    """Raise unless the default group's backend is the one ``device``
+    needs (NCCL for cuda, gloo for cpu)."""
+    have, want = dist.get_backend(), backend_for(device)
+    if have != want:
+        raise RuntimeError(f"the process group runs {have}, but the "
+                           f"{device.type} device needs {want}")
+
+
+class Group:
+    """The default process group, as the strategies see it: every
+    collective a strategy calls goes through one of these methods, which
+    count it by kind, since the last ``reset_step()`` (``step_counts``)
+    and in all (``total_counts``)."""
+
+    KINDS = ("all_reduce", "all_reduce_max", "gather", "scatter")
+
+    def __init__(self, device: Optional[torch.device] = None):
+        if not dist.is_initialized():
+            raise RuntimeError("no process group: call "
+                               "initialize_distributed first")
+        if device is not None:
+            check_backend(device)
+        self.rank = dist.get_rank()
+        self.world = dist.get_world_size()
+        self.step_counts: Counter = Counter()
+        self.total_counts: Counter = Counter()
+
+    def _count(self, kind: str) -> None:
+        self.step_counts[kind] += 1
+        self.total_counts[kind] += 1
+
+    def reset_step(self) -> None:
+        self.step_counts = Counter()
+
+    def all_reduce(self, t: torch.Tensor, async_op: bool = False):
+        """Sum ``t`` over the ranks, in place."""
+        self._count("all_reduce")
+        return dist.all_reduce(t, async_op=async_op)
+
+    def all_reduce_max(self, t: torch.Tensor) -> None:
+        """Element-wise maximum of ``t`` over the ranks, in place."""
+        self._count("all_reduce_max")
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+
+    def gather(self, t: torch.Tensor) -> Optional[List[torch.Tensor]]:
+        """Every rank's ``t`` on rank 0 (in rank order); None elsewhere."""
+        self._count("gather")
+        out = [torch.empty_like(t) for _ in range(self.world)] \
+            if self.rank == 0 else None
+        dist.gather(t, out, dst=0)
+        return out
+
+    def scatter(self, out: torch.Tensor,
+                chunks: Optional[Sequence[torch.Tensor]]) -> None:
+        """Rank r receives rank 0's ``chunks[r]`` into ``out``."""
+        self._count("scatter")
+        dist.scatter(out, list(chunks) if self.rank == 0 else None, src=0)

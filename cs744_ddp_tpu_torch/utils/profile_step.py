@@ -1,9 +1,11 @@
-"""Where the device time of the VGG-11 ``single`` train step goes, on one GPU.
+"""Where the device time of the VGG-11 train step goes, on one GPU.
 
-    python -m cs744_ddp_tpu_torch.utils.profile_step
+    python -m cs744_ddp_tpu_torch.utils.profile_step [--strategy NAME]
 
 Runs the Trainer's step exactly as ``Trainer.train_model`` does (batch 256,
-augmentation on, loss fetched after every step), warms up, then traces
+augmentation on, loss fetched after every step) with the given strategy
+(``single`` by default; any other runs at world 1, over NCCL in a world-1
+group, so its collectives are in the trace), warms up, then traces
 ``STEPS`` steady steps with ``torch.profiler`` and prints: the wall time per
 step, the device's busy share of it (union of kernel intervals over wall
 time), device time per step by kernel family, each of the port's own
@@ -12,6 +14,7 @@ kernels, and the top kernels.
 
 from __future__ import annotations
 
+import argparse
 import time
 from collections import defaultdict
 
@@ -26,6 +29,7 @@ STEPS = 10
 # Kernel families by name fragment, first match wins.
 FAMILIES = (
     ("bnpool kernels", ("sums_kernel", "dx_kernel")),
+    ("collectives", ("nccl",)),
     ("convolution", ("conv", "cudnn", "implicit", "gemm", "winograd", "xmma",
                      "cutlass", "wgrad", "dgrad", "sm90", "sm80")),
     ("batch norm", ("batch_norm", "batchnorm", "welford", "bn_")),
@@ -59,8 +63,12 @@ def busy_us(intervals) -> float:
     return total
 
 
-def main() -> None:
-    trainer = loop.Trainer("vgg11", "single", log=lambda s: None)
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--strategy", default="single",
+                        choices=loop.STRATEGIES)
+    args = parser.parse_args(argv)
+    trainer = loop.Trainer("vgg11", args.strategy, log=lambda s: None)
     batches = loop._train_batches(trainer.train_split, trainer.global_batch,
                                   0, trainer.seed)
 
@@ -82,8 +90,8 @@ def main() -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     card = torch.cuda.get_device_name(0)
-    print(f"[profile] {card}: {STEPS} steps, wall {wall_us / STEPS / 1e3:.3f}"
-          f" ms/step")
+    print(f"[profile] {card}, {args.strategy}: {STEPS} steps, wall "
+          f"{wall_us / STEPS / 1e3:.3f} ms/step")
     if not kernels:
         print("[profile] the profiler recorded no device events")
         return
@@ -112,4 +120,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if torch.distributed.is_initialized():   # the Trainer's world-1 group
+            torch.distributed.destroy_process_group()

@@ -6,6 +6,7 @@ import os
 import re
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -23,6 +24,7 @@ from cs744_ddp_tpu_torch.data import cifar10 as tcifar
 from cs744_ddp_tpu_torch.models import convert, vgg as tvgg
 from cs744_ddp_tpu_torch.ops import loss as tloss
 from cs744_ddp_tpu_torch.ops import sgd as tsgd
+from cs744_ddp_tpu_torch.parallel import strategies as tstrategies
 from cs744_ddp_tpu_torch.train import step as tstep
 from cs744_ddp_tpu_torch.train.loop import Trainer
 
@@ -89,7 +91,8 @@ def test_three_train_steps_match_reference():
     model = tvgg.VGG("VGG11").to(memory_format=torch.channels_last)
     model.load_state_dict(convert.from_jax(params, bn_state))
     tstate = tstep.init_train_state(model)
-    t_train = tstep.make_train_step(model, tsgd.SGDConfig(**cfg),
+    t_train = tstep.make_train_step(model, tstrategies.local,
+                                    tsgd.SGDConfig(**cfg),
                                     augment=False)
 
     split = tcifar._synthetic_split(3 * batch, 3)
@@ -133,8 +136,13 @@ def test_trainer_prints_the_reference_schedule():
 
 
 def test_trainer_refuses_cpu_fallback_and_unported_strategies():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Trainer("vgg11", "allreduce", device="cpu")
+    with pytest.raises(ValueError, match="unknown strategy"):
+        Trainer("vgg11", "zero_redundancy", device="cpu")
+    # 'single' is world 1 only (the Trainer's own check at world 2 runs in
+    # tests/test_torch_port_dist.py, over gloo).
+    with pytest.raises(ValueError, match="requires world 1"):
+        tstep.make_train_step(tvgg.VGG("VGG11"), tstrategies.local,
+                              group=types.SimpleNamespace(world=2))
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device exists")
     with pytest.raises(RuntimeError, match="no CUDA device"):
