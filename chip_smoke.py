@@ -22,18 +22,40 @@ Phases, in order; any failure exits non-zero:
                it reached, the plain version's time, and the backward of the
                unfused library chain (batch_norm -> relu -> max_pool2d) as a
                reference point;
-  4. train   — ``Trainer("vgg11", "single", global_batch=256)`` runs 40
-               augmented steps and a 5-batch eval on the synthetic split:
-               finite losses that fall from the first 20-step window to the
-               second, each kernel launched 5 times per step, and the
-               model's logits agreeing with a CPU run on a small batch;
+  4. train   — ``Trainer("vgg11", "single", global_batch=256)`` trains
+               one whole augmented epoch on the synthetic split through its
+               default windowed path (195 steps in 20-step windows, each
+               step a replay of the captured CUDA graph, one fetch per
+               window, then the ragged 80-row batch as one eager step) and
+               evaluates 5 batches: finite losses that fall from the first
+               window to the second, each kernel run 5 times per step as
+               the kernels count it on the device (warm-up steps and
+               replays; the wrappers' host count sees the warm-up, the
+               capture and the tail), at most windows + 2 host round
+               trips, ``torch.profiler`` over one more window showing
+               5 x 20 runs of each kernel, and the model's logits agreeing
+               with a CPU run on a small batch.  Then, in the same call,
+               the per-step path (``profile_phases=True``, 40 steps), the
+               phase split (``measure_phase_split``),
+               ``max_memory_allocated``, the counter-keyed draws on the
+               card against the CPU's, and, with deterministic cuDNN, a
+               fresh Trainer's first window of 20 steps (warm-up and
+               capture included) run under
+               ``torch.cuda.set_sync_debug_mode("error")`` and bitwise
+               equal to 20 per-step eager steps;
   5. strategies — every gradient-sync tier at world 1 over NCCL (a world-1
                group in this process), VGG-11 at batch 256, 40 augmented
-               steps each: finite losses that fall from the first 20-step
-               window to the second, the collective counts of every step,
-               each kernel launched 5 times per step, and the steady step
-               time and images/s; then, with deterministic cuDNN, each
-               stateless tier bitwise equal to ``single`` after 20 steps.
+               steps each through the windowed path: finite losses that
+               fall from the first 20-step window to the second, the
+               collective counts of every step (replay accounting), each
+               kernel run 5 times per step (counted on the device),
+               ``torch.profiler`` over one more replayed window showing
+               5 x 20 runs of each kernel, and the steady step time and
+               images/s, beside the per-step path's, run in the same call;
+               then, with deterministic cuDNN, each stateless tier bitwise
+               equal to ``single`` after 20 windowed steps, and
+               ``compress-int8`` and ``powersgd`` as in phase 4's bitwise
+               and sync-debug check.
                With two or more GPUs, every tier also trains 40 steps on
                2 and ``min(4, count)`` NCCL ranks (the CLI's
                ``--num-devices``): the reference's dataset-size lines for
@@ -64,6 +86,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
@@ -86,12 +109,15 @@ CHECK_SHAPES = SHAPES + [(n, c, h, w) for n in (BATCH // 2, BATCH // 4)
 # 4 float4 columns each, the last of them 0 (48 columns in all).
 RAGGED = (129, 96, 6, 6)
 TRAIN_STEPS = 40
+EPOCH_ROWS = 50000              # the training split: 195 batches + 80 rows
 EVAL_BATCHES = 5
 RTOL, ATOL = 5e-4, 1e-4
 TIERS = ("gather", "allreduce", "ddp", "overlap", "compress-bf16",
          "compress-int8", "powersgd")
 STATELESS = TIERS[:4]
 BITWISE_STEPS = 20
+PROFILE_PAD_S = 0.25            # idle host time traced around a window
+WINDOW = 20
 # Collectives per VGG-11 step (34 parameters, two 25 MiB buckets, 9
 # low-rank leaves), by kind.
 STEP_COUNTS = {
@@ -314,38 +340,195 @@ def phase_time(card_line):
     return tot
 
 
+def steady(timers):
+    """(steady step ms, images/s) of an epoch's timers."""
+    return (1e3 * statistics.mean(timers.steady_step_times),
+            timers.steady_images_per_sec(BATCH))
+
+
+def check_losses(label, losses, steps):
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+          f"{label}: losses {losses}")
+    first, second = (statistics.mean(losses[:20]),
+                     statistics.mean(losses[20:40]))
+    check(second < first, f"{label}: loss did not fall: {first} -> {second}")
+    return first, second
+
+
+def kernel_counts():
+    """(runs counted by the kernels on the device, launches counted by the
+    wrappers on the host) since the last reset."""
+    from cs744_ddp_tpu_torch.ops import bnpool
+    return bnpool.executed_counts(), bnpool.launch_counts()
+
+
+def train_tier(tier, steps, log=lambda s: None, **kw):
+    """A fresh VGG-11 Trainer of ``tier`` trained ``steps`` augmented steps
+    from the same seed (windowed unless ``profile_phases=True``), and the
+    kernels' runs and launches in that training, counted from 0."""
+    from cs744_ddp_tpu_torch.ops import bnpool
+    from cs744_ddp_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(model="vgg11", strategy=tier, global_batch=BATCH,
+                      augment=True, limit_train_batches=steps, log=log, **kw)
+    bnpool.reset_launch_counts()
+    trainer.train_model(0)
+    torch.cuda.synchronize()
+    return (trainer, *kernel_counts())
+
+
+def check_runs(label, runs, launches, steps, replayed):
+    """Each kernel ran 5 times a step on the device (runs); the wrappers
+    launched 5 a step eagerly, and on the windowed path (``replayed``
+    steps) 5 for each warm-up step and 5 into the captured graph."""
+    from cs744_ddp_tpu_torch.train.step import WARMUP_ITERS
+    eager = steps - replayed
+    if replayed:
+        eager += WARMUP_ITERS
+    want_runs = {k: 5 * (eager + replayed) for k in runs}
+    want_launches = {k: 5 * (eager + (1 if replayed else 0)) for k in runs}
+    check(runs == want_runs, f"{label}: kernels ran {runs} times on the "
+          f"device, want {want_runs}")
+    check(launches == want_launches, f"{label}: wrappers launched "
+          f"{launches}, want {want_launches}")
+
+
+def check_bitwise_paths(tier):
+    """With deterministic cuDNN (set by the caller): 20 windowed steps
+    bitwise equal to 20 per-step eager steps, losses and every tensor the
+    step carries.  The windowed Trainer is fresh and its one window (the
+    warm-up, the capture and 20 replays) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host sync in it."""
+    from cs744_ddp_tpu_torch.train.loop import Trainer
+    from cs744_ddp_tpu_torch.train.step import state_tensors
+
+    win = Trainer(model="vgg11", strategy=tier, global_batch=BATCH,
+                  augment=True, limit_train_batches=BITWISE_STEPS,
+                  log=lambda s: None)
+    window = win.train_window()       # stages the epoch: host copies
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = window(0, 0, BITWISE_STEPS)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    losses = window.losses_of(out.cpu().numpy(), 0, BITWISE_STEPS)
+    per = train_tier(tier, BITWISE_STEPS, profile_phases=True)[0]
+    check([float(v) for v in losses] == per.last_epoch_timers.losses,
+          f"{tier}: windowed losses differ from the per-step path's")
+    a, b = state_tensors(win.state), state_tensors(per.state)
+    check(len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)),
+          f"{tier}: windowed state differs from the per-step path's")
+    print(f"[bitwise] {tier}, deterministic cuDNN: {BITWISE_STEPS} windowed "
+          f"steps (graph replays) bitwise equal to {BITWISE_STEPS} per-step "
+          f"eager steps ({len(a)} tensors and the losses); the fresh "
+          f"Trainer's window, warm-up and capture included, under "
+          f"torch.cuda.set_sync_debug_mode('error'): no host sync  ok")
+
+
+def window_profile(trainer, w=WINDOW):
+    """One more replayed window of ``w`` steps under ``torch.profiler``,
+    CUDA activity only, no schedule: the runs of each bnpool kernel in the
+    trace and counted on the device, all device events in the trace, and
+    the collectives the replay accounting added.  Each kernel must show
+    5 * w runs both ways.
+
+    Kineto drops as out of range the records it stamps outside the
+    trace's span, and it has stamped a replayed window's first kernels
+    tens of ms before their launch call.  So no schedule is used (its
+    warm-up step would put the window's start inside one trace), and the
+    trace holds ``PROFILE_PAD_S`` of idle time on each side of the window
+    (``utils/profile_window_counts.py`` measures all three)."""
+    from collections import Counter
+    from cs744_ddp_tpu_torch.ops import bnpool
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    window = trainer.train_window()
+    want = {"bnpool_sums": 5 * w, "bnpool_dx": 5 * w}
+    before = Counter(trainer.group.total_counts) if trainer.group else None
+    bnpool.reset_launch_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        window(0, 0, w).cpu()
+        time.sleep(PROFILE_PAD_S)
+    runs = bnpool.executed_counts()
+    names = Counter(e.name for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+    seen = {k: sum(n for name, n in names.items() if frag in name)
+            for k, frag in (("bnpool_sums", "sums_kernel"),
+                            ("bnpool_dx", "dx_kernel"))}
+    check(seen == want and runs == want,
+          f"a {w}-step window: torch.profiler saw {seen} kernel runs, the "
+          f"device counted {runs}, want {want}")
+    added = None if before is None else \
+        dict(trainer.group.total_counts - before)
+    return seen, sum(names.values()), added
+
+
 def phase_train(card_line):
+    from cs744_ddp_tpu_torch.data import augment as aug
     from cs744_ddp_tpu_torch.models import get_model
     from cs744_ddp_tpu_torch.ops import bnpool
     from cs744_ddp_tpu_torch.train.loop import Trainer
 
+    # The main path: one whole epoch as the CLI trains it, the ragged last
+    # batch included.
     trainer = Trainer(model="vgg11", strategy="single", global_batch=BATCH,
-                      augment=True, limit_train_batches=TRAIN_STEPS,
-                      limit_eval_batches=EVAL_BATCHES)
+                      augment=True, limit_eval_batches=EVAL_BATCHES)
+    torch.cuda.reset_peak_memory_stats()
     bnpool.reset_launch_counts()
     t0 = time.perf_counter()
     trainer.run(1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"bnpool_sums": bnpool.bnpool_sums.launches,
-                "bnpool_dx": bnpool.bnpool_dx.launches}
-    timers = trainer.last_epoch_timers
-    losses = timers.losses
-    check(len(losses) == TRAIN_STEPS, f"{len(losses)} steps trained")
-    check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
-    first, second = (statistics.mean(losses[:20]),
-                     statistics.mean(losses[20:40]))
-    check(second < first, f"loss did not fall: {first} -> {second}")
-    for name, n in launches.items():
-        check(n == 5 * TRAIN_STEPS,
-              f"{name} launched {n} times in {TRAIN_STEPS} steps")
-    step_ms = 1e3 * statistics.mean(timers.steady_step_times)
-    ips = timers.steady_images_per_sec(BATCH)
-    print(f"[train] {TRAIN_STEPS} steps + {EVAL_BATCHES} eval batches in "
-          f"{wall:.2f} s; mean loss {first:.4f} (steps 1-20) -> "
-          f"{second:.4f} (21-40); launches {launches}")
-    print(f"[train] steady step {step_ms:.3f} ms, {ips:.1f} images/s "
-          f"(steps 21-40, batch {BATCH}, f32, TF32 off)  [{card_line}]")
+    runs, launches = kernel_counts()
+    max_mem = torch.cuda.max_memory_allocated()
+    full, tail_rows = divmod(EPOCH_ROWS, BATCH)
+    staged = trainer.train_window().images.shape[0]
+    check(staged == full, f"the epoch staged {staged} full batches")
+    steps = full + 1
+    losses = trainer.last_epoch_timers.losses
+    first, second = check_losses("single", losses, steps)
+    check_runs("single, windowed epoch", runs, launches, steps, full)
+    windows = -(-full // WINDOW)
+    check(trainer.host_round_trips <= windows + 2,
+          f"{trainer.host_round_trips} host round trips for {windows} "
+          f"windows, the tail and an eval")
+    step_ms, ips = steady(trainer.last_epoch_timers)
+    print(f"[train] windowed path: one epoch, {full} steps in {windows} "
+          f"windows of graph replays + the ragged tail of "
+          f"{tail_rows} rows as one eager step (loss "
+          f"{losses[-1]:.4f}) + {EVAL_BATCHES} eval batches in {wall:.2f} s; "
+          f"mean loss {first:.4f} (steps 1-20) -> {second:.4f} (21-40); "
+          f"kernel runs counted on the device {runs} (5 a step: "
+          f"3 warm-up steps, {full} replays, the tail), wrapper launches "
+          f"{launches} (warm-up, capture, tail); host round trips "
+          f"{trainer.host_round_trips}; max_memory_allocated "
+          f"{max_mem / 2 ** 20:.1f} MiB")
+    print(f"[train] windowed path: steady step {step_ms:.3f} ms, "
+          f"{ips:.1f} images/s (steps 21-{full}, batch {BATCH}, f32, TF32 "
+          f"off)  [{card_line}]")
+    seen, events, _ = window_profile(trainer)
+    print(f"[train] torch.profiler over one more {WINDOW}-step window: "
+          f"{seen} kernel runs ({events} device events), as counted on the "
+          f"device  ok")
+
+    per, per_runs, per_launches = train_tier("single", TRAIN_STEPS,
+                                             profile_phases=True)
+    check_losses("single per-step", per.last_epoch_timers.losses,
+                 TRAIN_STEPS)
+    check_runs("single, per-step path", per_runs, per_launches,
+               TRAIN_STEPS, 0)
+    check(per.host_round_trips >= TRAIN_STEPS,
+          f"per-step path: {per.host_round_trips} host round trips")
+    per_ms, per_ips = steady(per.last_epoch_timers)
+    fwd_ms = 1e3 * statistics.mean(per.last_epoch_timers.steady_forward_times)
+    print(f"[train] per-step path: steady step {per_ms:.3f} ms, "
+          f"{per_ips:.1f} images/s, forward-only program {fwd_ms:.3f} ms "
+          f"(steps 21-40); host round trips {per.host_round_trips}; "
+          f"kernel runs {per_runs}  [{card_line}]")
 
     # The model's forward on the card against the same weights on the CPU
     # (plain versions there), on a small batch: train-mode logits (batch
@@ -356,33 +539,47 @@ def phase_train(card_line):
     g = torch.Generator(device="cuda").manual_seed(7)
     x = torch.randn((32, 32, 32, 3), generator=g, device="cuda")
     x = x.permute(0, 3, 1, 2)
-    for train in (True, False):
-        model.train(train)
-        cpu.train(train)
-        with torch.no_grad():
+    with torch.no_grad():
+        for train in (True, False):
+            model.train(train)
+            cpu.train(train)
             got, want = model(x).cpu(), cpu(x.cpu())
-        check(got.shape == (32, 10) and bool(torch.isfinite(got).all()),
-              f"logits {tuple(got.shape)} not finite")
-        # Summation order through 8 conv+BN layers (GPU vs CPU, f32).
-        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+            check(got.shape == (32, 10) and bool(torch.isfinite(got).all()),
+                  f"logits {tuple(got.shape)} not finite")
+            # Summation order through 8 conv+BN layers (GPU vs CPU, f32).
+            torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
     print("[train] logits on the card agree with the CPU (train and eval "
           "mode, batch 32)  ok")
-    return launches
 
+    split = trainer.measure_phase_split(window_iters=TRAIN_STEPS, windows=3)
+    print(f"[train] phase split (windowed, slope between windows of "
+          f"{split['window_iters']} and {split['window_iters'] // 2} steps, "
+          f"min of 3): forward {split['forward_ms_per_iter']:.3f} ms, "
+          f"backward + update {split['backward_ms_per_iter']:.3f} ms, step "
+          f"{split['step_ms_per_iter']:.3f} ms per step; fixed cost of a "
+          f"train window {split['dispatch_ms_step_window']:.3f} ms  "
+          f"[{card_line}]")
 
-def train_tier(tier, steps, log=lambda s: None):
-    """A fresh VGG-11 Trainer of ``tier`` trained ``steps`` augmented steps
-    from the same seed, its kernel launches counted from 0."""
-    from cs744_ddp_tpu_torch.ops import bnpool
-    from cs744_ddp_tpu_torch.train.loop import Trainer
+    key = aug.stream_key(trainer.seed, 0)
+    batch = torch.from_numpy(trainer.train_split.images[:BATCH].copy())
+    on_card = aug.draws(BATCH, key, torch.tensor(3, device="cuda"),
+                        torch.tensor(17, device="cuda"))
+    on_cpu = aug.draws(BATCH, key, torch.tensor(3), torch.tensor(17))
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu)),
+          "counter-keyed draws differ between the card and the CPU")
+    check(torch.equal(aug.crop_flip(batch.cuda(), *on_card).cpu(),
+                      aug.crop_flip(batch, *on_cpu)),
+          "crop/flip differs between the card and the CPU")
+    print(f"[train] counter-keyed draws and crops of one batch of {BATCH}: "
+          f"the card's equal the CPU's  ok")
 
-    trainer = Trainer(model="vgg11", strategy=tier, global_batch=BATCH,
-                      augment=True, limit_train_batches=steps, log=log)
-    bnpool.reset_launch_counts()
-    trainer.train_model(0)
-    torch.cuda.synchronize()
-    return trainer, {"bnpool_sums": bnpool.bnpool_sums.launches,
-                     "bnpool_dx": bnpool.bnpool_dx.launches}
+    torch.backends.cudnn.deterministic = True
+    try:
+        check_bitwise_paths("single")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return runs, launches, {"single/window (epoch)": runs,
+                            "single/per-step": per_runs}
 
 
 def spawn_world(world, tier, out_dir, card_line):
@@ -451,38 +648,46 @@ def phase_strategies(card_line):
     launches = {}
     for tier in TIERS:
         t0 = time.perf_counter()
-        trainer, launched = train_tier(tier, TRAIN_STEPS)
-        wall = time.perf_counter() - t0
+        trainer, runs, launched = train_tier(tier, TRAIN_STEPS)
         check(dist.get_backend() == "nccl" and trainer.world == 1,
               f"{tier}: expected a world-1 NCCL group, got "
               f"{dist.get_backend()} at world {trainer.world}")
-        launches[tier] = launched
-        losses = trainer.last_epoch_timers.losses
-        check(len(losses) == TRAIN_STEPS and
-              all(math.isfinite(v) for v in losses),
-              f"{tier}: losses {losses}")
-        first, second = (statistics.mean(losses[:20]),
-                         statistics.mean(losses[20:40]))
-        check(second < first, f"{tier}: loss did not fall: {first} -> "
-              f"{second}")
+        launches[f"{tier}/window"] = runs
+        first, second = check_losses(tier, trainer.last_epoch_timers.losses,
+                                     TRAIN_STEPS)
         want = {k: n * TRAIN_STEPS for k, n in STEP_COUNTS[tier].items()}
         counts = dict(trainer.group.total_counts)
         check(counts == want, f"{tier}: collectives {counts} in "
               f"{TRAIN_STEPS} steps, want {want}")
-        for name, n in launched.items():
-            check(n == 5 * TRAIN_STEPS,
-                  f"{tier}: {name} launched {n} times in {TRAIN_STEPS} steps")
-        timers = trainer.last_epoch_timers
-        step_ms = 1e3 * statistics.mean(timers.steady_step_times)
-        ips = timers.steady_images_per_sec(BATCH)
-        print(f"[strategies] {tier:13s} world 1 NCCL: steady step "
-              f"{step_ms:.3f} ms, {ips:.1f} images/s (steps 21-40, batch "
-              f"{BATCH}); loss {first:.4f} -> {second:.4f}; collectives per "
-              f"step {STEP_COUNTS[tier]}; launches {launched}; "
-              f"{wall:.1f} s  [{card_line}]")
+        check_runs(f"{tier}, windowed", runs, launched, TRAIN_STEPS,
+                   TRAIN_STEPS)
+        seen, events, added = window_profile(trainer)
+        want_window = {k: n * WINDOW for k, n in STEP_COUNTS[tier].items()}
+        check(added == want_window, f"{tier}: a {WINDOW}-step window added "
+              f"collectives {added}, want {want_window}")
+        step_ms, ips = steady(trainer.last_epoch_timers)
+        wall = time.perf_counter() - t0
+
+        per, per_runs, per_launched = train_tier(tier, TRAIN_STEPS,
+                                                 profile_phases=True)
+        launches[f"{tier}/per-step"] = per_runs
+        check_losses(f"{tier} per-step", per.last_epoch_timers.losses,
+                     TRAIN_STEPS)
+        per_counts = dict(per.group.total_counts)
+        check(per_counts == want, f"{tier} per-step: collectives "
+              f"{per_counts} in {TRAIN_STEPS} steps, want {want}")
+        check_runs(f"{tier}, per-step", per_runs, per_launched, TRAIN_STEPS,
+                   0)
+        per_ms, per_ips = steady(per.last_epoch_timers)
+        print(f"[strategies] {tier:13s} world 1 NCCL: windowed steady step "
+              f"{step_ms:.3f} ms, {ips:.1f} images/s; per-step path "
+              f"{per_ms:.3f} ms, {per_ips:.1f} images/s (steps 21-40, "
+              f"batch {BATCH}); loss {first:.4f} -> {second:.4f}; "
+              f"collectives per step {STEP_COUNTS[tier]}; kernel runs "
+              f"{runs}; profiler over a {WINDOW}-step window {seen} "
+              f"({events} device events); {wall:.1f} s  [{card_line}]")
 
     torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
     try:
         want = train_tier("single", BITWISE_STEPS)[0].state.model.state_dict()
         for tier in ("single",) + STATELESS:     # single: run to run
@@ -492,7 +697,9 @@ def phase_strategies(card_line):
                       f"{tier} at world 1 differs from single in {k}")
             print(f"[strategies] {tier} at world 1, deterministic cuDNN: "
                   f"parameters and BN statistics after {BITWISE_STEPS} "
-                  f"steps bitwise equal to single  ok")
+                  f"windowed steps bitwise equal to single  ok")
+        for tier in ("compress-int8", "powersgd"):
+            check_bitwise_paths(tier)
     finally:
         torch.backends.cudnn.deterministic = False
     dist.destroy_process_group()
@@ -538,8 +745,8 @@ def main(argv=None) -> int:
     errs = {"bnpool_sums": 0.0, "bnpool_dx": 0.0}
     phase_check(errs)
     tot = phase_time(card_line)
-    launches = phase_train(card_line)
-    by_path = {"single": launches, **phase_strategies(card_line)}
+    launches, wrapper_launches, by_path = phase_train(card_line)
+    by_path.update(phase_strategies(card_line))
 
     replaces = {"bnpool_sums": "cs744_ddp_tpu/ops/bnpool_pallas.py:147",
                 "bnpool_dx": "cs744_ddp_tpu/ops/bnpool_pallas.py:184"}
@@ -551,13 +758,17 @@ def main(argv=None) -> int:
         "plain_ms": tot[name]["plain_ms"], "bound_ms": tot[name]["bound_ms"],
         "bound_by": ("bytes" if tot[name]["bytes"] / HBM_BYTES_PER_S
                      >= tot[name]["ops"] / F32_OPS_PER_S else "operations"),
-        "library_ms": None,
+        "library_ms": None, "wrapper_launches": wrapper_launches[name],
         "launches_by_path": {p: n[name] for p, n in by_path.items()}}
         for name in ("bnpool_sums", "bnpool_dx")]
     print(f"[done] {time.perf_counter() - t_all:.1f} s; ms, plain_ms and "
-          f"bound_ms are per training step (5 pool blocks); launches is the "
-          f"single path's, launches_by_path each path's ({TRAIN_STEPS} "
-          f"steps)")
+          f"bound_ms are per training step (5 pool blocks); launches are "
+          f"the kernels' runs counted on the device in the main path's run "
+          f"(single, one windowed epoch), wrapper_launches the wrappers' "
+          f"host count there (eager launches and the capture), "
+          f"launches_by_path each path's runs (the others {TRAIN_STEPS} "
+          f"steps; window: 3 warm-up steps and graph replays, per-step: "
+          f"eager)")
     print(json.dumps({"kernels": kernels}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

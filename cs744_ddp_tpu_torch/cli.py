@@ -5,9 +5,13 @@ script's print schedule.
     python -m cs744_ddp_tpu_torch.cli                            # allreduce, 1 GPU
     python -m cs744_ddp_tpu_torch.cli --num-devices 4 --strategy ddp
     python -m cs744_ddp_tpu_torch.cli --device cpu --num-devices 2
+    python -m cs744_ddp_tpu_torch.cli --profile-phases          # fwd/bwd split
     # one process per node, the reference's launch:
     python -m cs744_ddp_tpu_torch.cli --master HOST --num-nodes 2 --rank 0
 
+Each epoch is trained in 20-step windows, on the card as replays of one
+captured CUDA graph of the step, with one device-to-host fetch per window
+(``--profile-phases`` takes the per-step path instead).
 ``--num-devices N`` spawns N local ranks: one per GPU over NCCL, or with
 ``--device cpu`` N processes over gloo.  Without it the process is one rank
 of ``--num-nodes`` (a world-1 group when that is 1).  Without
@@ -62,6 +66,22 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--weight-decay", type=float, default=1e-4)
     p.add_argument("--no-augment", action="store_true",
                    help="normalize only: no random crop/flip")
+    p.add_argument("--profile-phases", action="store_true",
+                   help="the per-step path: one eager step per batch, its "
+                        "loss fetched, with a forward-only program timed "
+                        "before it to report the reference's fwd/bwd "
+                        "split.  It pays a launch per kernel and a fetch "
+                        "per step, which the default windowed path (CUDA "
+                        "graph replays, one fetch per 20 steps) does not, "
+                        "so its times run above the default mode's")
+    p.add_argument("--metrics-ring", type=int, default=None, metavar="N",
+                   help="device-resident metric ring capacity for the "
+                        "windowed path (obs/ringbuf.py): per-step "
+                        "loss/grad-norm/ok rows are written on the device "
+                        "and drained ONCE per window instead of per step. "
+                        "Default on (capacity 64); 0 disables (one fetch "
+                        "of the window's losses instead); N >= 20 sets the "
+                        "capacity")
     p.add_argument("--limit-train-batches", type=int, default=None)
     p.add_argument("--limit-eval-batches", type=int, default=None)
     p.add_argument("--data-dir", default="./data")
@@ -81,7 +101,8 @@ def _train(args: argparse.Namespace) -> None:
         sgd_cfg=SGDConfig(lr=args.lr, momentum=args.momentum,
                           weight_decay=args.weight_decay),
         limit_train_batches=args.limit_train_batches,
-        limit_eval_batches=args.limit_eval_batches)
+        limit_eval_batches=args.limit_eval_batches,
+        profile_phases=args.profile_phases, metrics_ring=args.metrics_ring)
     trainer.run(args.epochs)
     if args.save:
         os.makedirs(args.save, exist_ok=True)

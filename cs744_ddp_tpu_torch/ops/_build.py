@@ -30,9 +30,9 @@ _I = ctypes.c_int
 # Argument types of every C entry point, by library.
 SIGNATURES = {
     "bnpool.cu": {
-        **{f"bnpool_sums_{t}": [_P] * 6 + [_I] * 5 + [_P]
+        **{f"bnpool_sums_{t}": [_P] * 6 + [_I] * 5 + [_P] * 2
            for t in ("f32", "bf16")},
-        **{f"bnpool_dx_{t}": [_P] * 7 + [_I] * 4 + [_P]
+        **{f"bnpool_dx_{t}": [_P] * 7 + [_I] * 4 + [_P] * 2
            for t in ("f32", "bf16")},
     },
 }

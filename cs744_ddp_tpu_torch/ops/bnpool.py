@@ -27,7 +27,7 @@ physically), so C is the contiguous dimension for the kernels.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -225,10 +225,32 @@ def _check_vector_path(xhat, tensors) -> None:
                              f"tensors; one starts at {t.data_ptr():#x}")
 
 
+# Kernel runs counted on the device, by device index: int64 [2], the sums
+# kernel's and the dx kernel's.  Each run of a kernel adds one, so a launch
+# inside a CUDA graph counts on every replay (the wrapper's host count
+# ``launches`` sees it once, at capture).
+_EXECUTED: Dict[int, torch.Tensor] = {}
+_SUMS, _DX = 0, 1
+
+
+def _executed(device: torch.device, which: int) -> int:
+    """The address of the device counter of kernel ``which``."""
+    counter = _EXECUTED.get(device.index)
+    if counter is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the bnpool kernels' run counter is made at "
+                               "their first eager launch on a device; a "
+                               "CUDA graph capture came first")
+        counter = torch.zeros(2, dtype=torch.int64, device=device)
+        _EXECUTED[device.index] = counter
+    return counter.data_ptr() + which * counter.element_size()
+
+
 def bnpool_sums(xhat, dp, gamma, beta) -> torch.Tensor:
     """Phase 1: [2, C] f32 (sum dy, sum dy*xhat).  CUDA tensors launch the
-    kernel once (``bnpool_sums.launches`` counts it) or raise; CPU tensors
-    take the plain version."""
+    kernel once (``bnpool_sums.launches`` counts it; the kernel counts its
+    runs in ``executed_counts``) or raise; CPU tensors take the plain
+    version."""
     _check_inputs(xhat, dp, (gamma, beta))
     if not xhat.is_cuda:
         return bnpool_sums_reference(xhat, dp, gamma, beta)
@@ -244,7 +266,7 @@ def bnpool_sums(xhat, dp, gamma, beta) -> torch.Tensor:
         stream = torch.cuda.current_stream(xhat.device).cuda_stream
         err = fn(xhat.data_ptr(), dp.data_ptr(), gamma.data_ptr(),
                  beta.data_ptr(), partial.data_ptr(), sums.data_ptr(), n, h,
-                 w, c, blocks, stream)
+                 w, c, blocks, _executed(xhat.device, _SUMS), stream)
     _build.check(lib, err, "bnpool_sums")
     bnpool_sums.launches += 1
     return sums
@@ -255,8 +277,8 @@ bnpool_sums.launches = 0
 
 def bnpool_dx(xhat, dp, gamma, beta, inv, sums) -> torch.Tensor:
     """Phase 2: dx in xhat's dtype, channels_last.  CUDA tensors launch the
-    kernel (``bnpool_dx.launches`` counts it); CPU tensors take the plain
-    version."""
+    kernel (``bnpool_dx.launches`` counts it, ``executed_counts`` its runs);
+    CPU tensors take the plain version."""
     _check_inputs(xhat, dp, (gamma, beta, inv), sums)
     if not xhat.is_cuda:
         return bnpool_dx_reference(xhat, dp, gamma, beta, inv, sums)
@@ -268,7 +290,8 @@ def bnpool_dx(xhat, dp, gamma, beta, inv, sums) -> torch.Tensor:
         stream = torch.cuda.current_stream(xhat.device).cuda_stream
         err = fn(xhat.data_ptr(), dp.data_ptr(), gamma.data_ptr(),
                  beta.data_ptr(), inv.data_ptr(), sums.data_ptr(),
-                 dx.data_ptr(), n, h, w, c, stream)
+                 dx.data_ptr(), n, h, w, c, _executed(xhat.device, _DX),
+                 stream)
     _build.check(lib, err, "bnpool_dx")
     bnpool_dx.launches += 1
     return dx
@@ -278,8 +301,28 @@ bnpool_dx.launches = 0
 
 
 def reset_launch_counts() -> None:
+    """Zero the wrappers' launch counts and the kernels' run counters."""
     bnpool_sums.launches = 0
     bnpool_dx.launches = 0
+    for counter in _EXECUTED.values():
+        counter.zero_()
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches so far, by wrapper: eager launches and launches recorded
+    into a CUDA graph, each once."""
+    return {"bnpool_sums": bnpool_sums.launches,
+            "bnpool_dx": bnpool_dx.launches}
+
+
+def executed_counts() -> Dict[str, int]:
+    """Runs of each kernel so far, counted by the kernels on the device,
+    over every device (a graph's replays included).  It synchronises."""
+    total = [0, 0]
+    for counter in _EXECUTED.values():
+        for i, v in enumerate(counter.tolist()):
+            total[i] += v
+    return {"bnpool_sums": total[_SUMS], "bnpool_dx": total[_DX]}
 
 
 def bnpool_backward(xhat, dp, gamma, beta, inv):

@@ -53,6 +53,11 @@
 //     mbarrier) was also written and timed: it was slower at every VGG-11
 //     pool shape and was removed (PERF.md).
 // Phase 2 (bnpool_dx): one thread per (window, channel), scalar loads.
+//
+// Each kernel adds one to a device counter (`executed`, a u64 of the
+// wrapper's) when it runs: thread 0 of block 0, one atomic a launch.  A
+// launch that a CUDA graph replays is counted on every replay, where the
+// host sees only the capture.
 
 #include <cuda_bf16.h>
 #include <cooperative_groups.h>
@@ -354,7 +359,9 @@ __global__ void __launch_bounds__(kSumThreads, kSumMinBlocks)
     sums_kernel(const T* __restrict__ xhat, const T* __restrict__ dp,
                 const float* __restrict__ gamma,
                 const float* __restrict__ beta, float* __restrict__ partial,
-                float* __restrict__ sums, int rows, int W, int C) {
+                float* __restrict__ sums, int rows, int W, int C,
+                unsigned long long* __restrict__ executed) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(executed, 1ull);
   constexpr int V = Vec<T>::kN;
   const Lane l = lane_of<V>(C);
   float s_dy[V], s_dyx[V];
@@ -379,7 +386,9 @@ __global__ void __launch_bounds__(kDxThreads)
     dx_kernel(const T* __restrict__ xhat, const T* __restrict__ dp,
               const float* __restrict__ gamma, const float* __restrict__ beta,
               const float* __restrict__ inv, const float* __restrict__ sums,
-              T* __restrict__ dx, int N, int H, int W, int C) {
+              T* __restrict__ dx, int N, int H, int W, int C,
+              unsigned long long* __restrict__ executed) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(executed, 1ull);
   const int total = N * (H / 2) * (W / 2) * C;
   const float n = static_cast<float>(N * H * W);
   for (int e = blockIdx.x * kDxThreads + threadIdx.x; e < total;
@@ -398,7 +407,7 @@ __global__ void __launch_bounds__(kDxThreads)
 template <typename T>
 int launch_sums(const void* xhat, const void* dp, const void* gamma,
                 const void* beta, void* partial, void* sums, int N, int H,
-                int W, int C, int blocks, void* stream) {
+                int W, int C, int blocks, void* executed, void* stream) {
   const T* x = static_cast<const T*>(xhat);
   const T* d = static_cast<const T*>(dp);
   const float* g = static_cast<const float*>(gamma);
@@ -406,7 +415,8 @@ int launch_sums(const void* xhat, const void* dp, const void* gamma,
   float* part = static_cast<float*>(partial);
   float* out = static_cast<float*>(sums);
   int rows = N * (H / 2);
-  void* args[] = {&x, &d, &g, &b, &part, &out, &rows, &W, &C};
+  unsigned long long* ran = static_cast<unsigned long long*>(executed);
+  void* args[] = {&x, &d, &g, &b, &part, &out, &rows, &W, &C, &ran};
   cudaError_t err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(sums_kernel<T>), dim3(blocks),
       dim3(kSumThreads), args, 0, static_cast<cudaStream_t>(stream));
@@ -416,14 +426,15 @@ int launch_sums(const void* xhat, const void* dp, const void* gamma,
 template <typename T>
 int launch_dx(const void* xhat, const void* dp, const void* gamma,
               const void* beta, const void* inv, const void* sums, void* dx,
-              int N, int H, int W, int C, void* stream) {
+              int N, int H, int W, int C, void* executed, void* stream) {
   const int total = N * (H / 2) * (W / 2) * C;
   const int blocks = (total + kDxThreads - 1) / kDxThreads;
   dx_kernel<T><<<blocks, kDxThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(xhat), static_cast<const T*>(dp),
       static_cast<const float*>(gamma), static_cast<const float*>(beta),
       static_cast<const float*>(inv), static_cast<const float*>(sums),
-      static_cast<T*>(dx), N, H, W, C);
+      static_cast<T*>(dx), N, H, W, C,
+      static_cast<unsigned long long*>(executed));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -434,8 +445,9 @@ int launch_dx(const void* xhat, const void* dp, const void* gamma,
 // kernel also takes partial, f32 [blocks, 2, C] scratch, and the grid
 // (`blocks`, no more than the card holds at once).  It needs C a multiple
 // of 16 bytes' worth of channels, at most 256 such vectors, and 16-byte
-// aligned xhat, dp, gamma, beta, partial and sums.  Each returns the launch's
-// error, else cudaGetLastError() after it (0 on success);
+// aligned xhat, dp, gamma, beta, partial and sums.  `executed` points to a
+// device u64 that the kernel increments once a run.  Each returns the
+// launch's error, else cudaGetLastError() after it (0 on success);
 // cuda_error_string names a nonzero code.
 extern "C" {
 
@@ -445,30 +457,33 @@ const char* cuda_error_string(int err) {
 
 int bnpool_sums_f32(const void* xhat, const void* dp, const void* gamma,
                     const void* beta, void* partial, void* sums, int N, int H,
-                    int W, int C, int blocks, void* stream) {
+                    int W, int C, int blocks, void* executed, void* stream) {
   return launch_sums<float>(xhat, dp, gamma, beta, partial, sums, N, H, W, C,
-                            blocks, stream);
+                            blocks, executed, stream);
 }
 
 int bnpool_sums_bf16(const void* xhat, const void* dp, const void* gamma,
                      const void* beta, void* partial, void* sums, int N,
-                     int H, int W, int C, int blocks, void* stream) {
+                     int H, int W, int C, int blocks, void* executed,
+                     void* stream) {
   return launch_sums<__nv_bfloat16>(xhat, dp, gamma, beta, partial, sums, N,
-                                    H, W, C, blocks, stream);
+                                    H, W, C, blocks, executed, stream);
 }
 
 int bnpool_dx_f32(const void* xhat, const void* dp, const void* gamma,
                   const void* beta, const void* inv, const void* sums,
-                  void* dx, int N, int H, int W, int C, void* stream) {
+                  void* dx, int N, int H, int W, int C, void* executed,
+                  void* stream) {
   return launch_dx<float>(xhat, dp, gamma, beta, inv, sums, dx, N, H, W, C,
-                          stream);
+                          executed, stream);
 }
 
 int bnpool_dx_bf16(const void* xhat, const void* dp, const void* gamma,
                    const void* beta, const void* inv, const void* sums,
-                   void* dx, int N, int H, int W, int C, void* stream) {
+                   void* dx, int N, int H, int W, int C, void* executed,
+                   void* stream) {
   return launch_dx<__nv_bfloat16>(xhat, dp, gamma, beta, inv, sums, dx, N, H,
-                                  W, C, stream);
+                                  W, C, executed, stream);
 }
 
 }  // extern "C"

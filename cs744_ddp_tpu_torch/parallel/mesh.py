@@ -98,7 +98,12 @@ class Group:
     """The default process group, as the strategies see it: every
     collective a strategy calls goes through one of these methods, which
     count it by kind, since the last ``reset_step()`` (``step_counts``)
-    and in all (``total_counts``)."""
+    and in all (``total_counts``).
+
+    The counts are kept on the host, so a step captured in a CUDA graph
+    counts its collectives once, at capture; each replay then adds the
+    captured step's counts (``add_replayed``), so that both counts mean
+    collectives executed on either path."""
 
     KINDS = ("all_reduce", "all_reduce_max", "gather", "scatter")
 
@@ -119,6 +124,12 @@ class Group:
 
     def reset_step(self) -> None:
         self.step_counts = Counter()
+
+    def add_replayed(self, step: Counter) -> None:
+        """Count one replay of a captured step whose collectives were
+        ``step``."""
+        self.step_counts = Counter(step)
+        self.total_counts.update(step)
 
     def all_reduce(self, t: torch.Tensor, async_op: bool = False):
         """Sum ``t`` over the ranks, in place."""

@@ -1,30 +1,54 @@
-"""Train and eval steps: prepare -> forward in train mode -> mean CE ->
-backward -> gradient sync -> SGD, then the BN running statistics and the
-loss meaned over the ranks.
+"""Train, forward and eval programs: prepare -> forward in train mode ->
+mean CE -> backward -> gradient sync -> SGD, then the BN running statistics
+and the loss meaned over the ranks; and their windows.
 
-The reference package compiles this as one jitted ``shard_map`` program
-(``train/step.py::make_train_step``); here it runs eagerly on each rank's
-own rows of the batch, the strategy's collectives go over the process
-group (``parallel/``), and the pool-preceded BN blocks' backward launches
-the fused CUDA kernels.  Training-mode BN uses the rank's own batch
-statistics and updates the running statistics in the model's buffers.
-The ``single`` strategy is the plain step with no process group, as the
-reference's Part 1 has no ``torch.distributed`` code.
+The reference package compiles the step as one jitted ``shard_map``
+program (``train/step.py::make_train_step``) and a window of steps as a
+``lax.scan`` over the staged epoch (``make_train_window``).  Here the step
+runs eagerly on each rank's own rows of the batch, the strategy's
+collectives go over the process group (``parallel/``), and the
+pool-preceded BN blocks' backward launches the fused CUDA kernels.
+
+A window (``TrainWindow``, ``FwdWindow``) reads its batches from the
+staged epoch at a DEVICE index and writes its results to persistent device
+tensors, so that one step is a function of fixed addresses only: on the
+card it is captured once into a CUDA graph and each step of a window is a
+replay of it (``GraphStep``); on the CPU the same body runs eagerly (gloo
+collectives cannot be captured).  Everything the step carries across steps
+is updated in place: the parameters and momentum (``ops/sgd.py``), the BN
+running statistics (``copy_`` in the modules), a compressed strategy's
+residuals and Q factors (``copy_comm``).
+
+Training-mode BN uses the rank's own batch statistics.  The ``single``
+strategy is the plain step with no process group, as the reference's
+Part 1 has no ``torch.distributed`` code.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Sequence, Tuple
+import contextlib
+from collections import Counter
+from typing import (Callable, Dict, Iterator, List, NamedTuple, Optional,
+                    Sequence, Tuple, Union)
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn as nn
 
 from ..data import augment as aug
+from ..obs import ringbuf
 from ..ops import sgd
 from ..ops.loss import cross_entropy, masked_eval_counts
 from ..parallel import strategies
 from ..parallel.mesh import Group
+
+# Eager iterations before a capture: the first NCCL collective, cuDNN's
+# handles and the autograd engine's threads initialise lazily, and none of
+# that may happen inside a capture.
+WARMUP_ITERS = 3
+
+Index = Union[int, torch.Tensor]
 
 
 class TrainState(NamedTuple):
@@ -41,6 +65,31 @@ def init_train_state(model: nn.Module, strategy=None) -> TrainState:
     return TrainState(model, opt)
 
 
+def state_tensors(state: TrainState) -> List[torch.Tensor]:
+    """Every tensor the step carries from one step to the next: parameters,
+    buffers (BN running statistics), momentum, comm state."""
+    model, opt = state
+    out = [t.detach() for t in list(model.parameters())
+           + list(model.buffers())]
+    out += list(opt.momentum)
+    if opt.comm is not None:
+        out += list(opt.comm["residual"]) + list(opt.comm.get("q", {})
+                                                 .values())
+    return out
+
+
+@contextlib.contextmanager
+def preserved(tensors: Sequence[torch.Tensor]) -> Iterator[None]:
+    """Restore ``tensors`` in place, bit for bit, when the block ends."""
+    saved = [t.clone() for t in tensors]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for t, s in zip(tensors, saved):
+                t.copy_(s)
+
+
 def apply_strategy(strategy, grads, group: Group, comm):
     """Run the gradient-sync strategy, threading comm state: stateful
     strategies are ``(grads, group, comm) -> (grads, comm')``, stateless
@@ -50,16 +99,34 @@ def apply_strategy(strategy, grads, group: Group, comm):
     return strategy(grads, group), comm
 
 
-def prepare(images_u8: torch.Tensor, augment: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+@torch.no_grad()
+def copy_comm(comm: Dict, new_comm: Dict) -> None:
+    """Write a stateful strategy's new comm state into ``comm``'s own
+    tensors.  The strategies return fresh tensors; a captured step must
+    find its state at the addresses it was captured with, so the step
+    copies instead of rebinding."""
+    for r, new in zip(comm["residual"], new_comm["residual"], strict=True):
+        r.copy_(new)
+    if "q" in comm:
+        if comm["q"].keys() != new_comm["q"].keys():
+            raise ValueError("the strategy returned Q factors for other "
+                             "parameters than the comm state holds")
+        for name, q in comm["q"].items():
+            q.copy_(new_comm["q"][name])
+
+
+def prepare(images_u8: torch.Tensor, augment: bool, key: int,
+            epoch: torch.Tensor, idx: torch.Tensor,
+            stats: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
     """uint8 [B,32,32,3] -> the model's f32 input [B,3,32,32] (channels_last):
-    random crop/flip + normalize when ``augment``, else normalize only."""
-    x = aug.augment(images_u8, generator) if augment \
-        else aug.normalize(images_u8)
+    the counter-keyed crop/flip of batch ``idx`` of ``epoch`` + normalize
+    when ``augment``, else normalize only."""
+    x = aug.augment(images_u8, key, epoch, idx, stats) if augment \
+        else aug.normalize(images_u8, stats)
     return aug.to_model_input(x)
 
 
-def _bn_statistics(model: nn.Module) -> Sequence[torch.Tensor]:
+def _bn_statistics(model: nn.Module) -> List[torch.Tensor]:
     return [b for name, b in model.named_buffers()
             if name.endswith(("running_mean", "running_var"))]
 
@@ -77,18 +144,34 @@ def mean_over_ranks(tensors: Sequence[torch.Tensor], world: int) -> None:
         off += t.numel()
 
 
-def make_train_step(model: nn.Module, strategy=strategies.local,
-                    cfg: sgd.SGDConfig = sgd.SGDConfig(), *,
-                    augment: bool = True,
-                    group: Optional[Group] = None) -> Callable:
-    """step(state, images_u8 [B,32,32,3], labels [B], generator) -> loss.
+def _index(v: Index, device: torch.device) -> torch.Tensor:
+    """An int64 0-d tensor on ``device``: made by a fill, not a copy."""
+    if torch.is_tensor(v):
+        return v
+    return torch.full((), int(v), dtype=torch.int64, device=device)
 
-    ``images_u8``/``labels`` are this rank's rows of the global batch and
-    ``state`` is ``init_train_state(model, strategy)``.  The step updates
-    the model's parameters, its BN running statistics, the momentum and
-    the comm state in place and returns the loss (meaned over the ranks)
-    as a 0-d device tensor, not synchronised.  ``group.step_counts`` holds
-    the step's strategy collectives afterwards."""
+
+def _device_of(model: nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def _stream_key(seed: int, group: Optional[Group]) -> int:
+    return aug.stream_key(seed, 0 if group is None else group.rank)
+
+
+def make_step_body(model: nn.Module, strategy=strategies.local,
+                   cfg: sgd.SGDConfig = sgd.SGDConfig(), *,
+                   augment: bool = True, group: Optional[Group] = None,
+                   seed: int = 0) -> Callable:
+    """body(state, images_u8, labels, epoch, idx) -> (loss, grads): one
+    train step on this rank's rows, ``epoch`` and ``idx`` int64 0-d
+    tensors on the model's device that key the augmentation draws.
+
+    It updates the parameters, BN running statistics, momentum and comm
+    state in place and returns the loss (meaned over the ranks, a 0-d
+    tensor, not synchronised) and the post-sync gradients.  No value goes
+    to the host.  ``group.step_counts`` holds the step's strategy
+    collectives afterwards."""
     params = list(model.parameters())
     single = strategy is strategies.local
     if single and group is not None and group.world != 1:
@@ -100,17 +183,18 @@ def make_train_step(model: nn.Module, strategy=strategies.local,
     stats = _bn_statistics(model)
     overlap = strategy.attach(params, group) \
         if hasattr(strategy, "attach") else None
+    key = _stream_key(seed, group)
+    norm = aug.channel_stats(_device_of(model))
 
-    def step(state: TrainState, images_u8: torch.Tensor,
-             labels: torch.Tensor,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = prepare(images_u8, augment, generator)
+    def body(state: TrainState, images_u8: torch.Tensor,
+             labels: torch.Tensor, epoch: torch.Tensor, idx: torch.Tensor):
+        x = prepare(images_u8, augment, key, epoch, idx, norm)
         model.train()
         loss = cross_entropy(model(x), labels)
         if single:
             grads = torch.autograd.grad(loss, params)
             sgd.update(params, grads, state.opt_state, cfg)
-            return loss.detach()
+            return loss.detach(), grads
         group.reset_step()
         if overlap is not None:
             overlap.begin()
@@ -121,28 +205,317 @@ def make_train_step(model: nn.Module, strategy=strategies.local,
             comm = state.opt_state.comm
             grads, new_comm = apply_strategy(strategy, grads, group, comm)
             if new_comm is not None:
-                comm.update(new_comm)
+                copy_comm(comm, new_comm)
         sgd.update(params, grads, state.opt_state, cfg)
         loss = loss.detach().reshape(1)
         with torch.no_grad():
             mean_over_ranks(list(stats) + [loss], group.world)
-        return loss[0]
+        return loss[0], grads
 
+    return body
+
+
+def make_train_step(model: nn.Module, strategy=strategies.local,
+                    cfg: sgd.SGDConfig = sgd.SGDConfig(), *,
+                    augment: bool = True,
+                    group: Optional[Group] = None, seed: int = 0
+                    ) -> Callable:
+    """step(state, images_u8 [B,32,32,3], labels [B], epoch=0, idx=0) ->
+    loss: ``make_step_body`` on a batch the caller hands over, ``epoch``
+    and ``idx`` (ints or int64 0-d device tensors) keying the augmentation.
+    ``step.body`` is the body, for a window that shares it."""
+    body = make_step_body(model, strategy, cfg, augment=augment,
+                          group=group, seed=seed)
+
+    def step(state: TrainState, images_u8: torch.Tensor,
+             labels: torch.Tensor, epoch: Index = 0, idx: Index = 0
+             ) -> torch.Tensor:
+        dev = images_u8.device
+        return body(state, images_u8, labels, _index(epoch, dev),
+                    _index(idx, dev))[0]
+
+    step.body = body
     return step
 
 
-def make_eval_step(model: nn.Module, group: Optional[Group] = None
-                   ) -> Callable:
-    """step(images_u8, labels) -> (loss_sum, correct) over the examples with
-    label >= 0 (label -1 marks padding), running statistics in BN, summed
-    over the ranks when there is more than one."""
+def make_forward_body(model: nn.Module, *, augment: bool = True,
+                      group: Optional[Group] = None, seed: int = 0
+                      ) -> Callable:
+    """fwd(images_u8, labels, epoch, idx) -> loss: the train step's input
+    transform, forward in train mode (batch statistics) and loss, meaned
+    over the ranks; no backward, no update.  The forward updates the BN
+    running statistics in place, as every train-mode forward of the
+    modules does: a caller that must leave them unchanged, as the
+    reference's forward-only programs do, restores the model's buffers
+    (running statistics and ``num_batches_tracked``)."""
+    key = _stream_key(seed, group)
+    norm = aug.channel_stats(_device_of(model))
 
     @torch.no_grad()
-    def step(images_u8: torch.Tensor, labels: torch.Tensor
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def fwd(images_u8: torch.Tensor, labels: torch.Tensor,
+            epoch: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        model.train()
+        loss = cross_entropy(
+            model(prepare(images_u8, augment, key, epoch, idx, norm)),
+            labels)
+        if group is not None and group.world > 1:
+            loss = loss.reshape(1)
+            mean_over_ranks([loss], group.world)
+            loss = loss[0]
+        return loss
+
+    return fwd
+
+
+def make_forward_step(model: nn.Module, group: Optional[Group] = None
+                      ) -> Callable:
+    """fwd(images_u8, labels) -> loss: the reference's per-step
+    forward-only program of ``profile_phases`` (normalize, forward in train
+    mode, loss meaned over the ranks), BN running statistics left as they
+    were."""
+    body = make_forward_body(model, augment=False, group=group)
+    buffers = list(model.buffers())
+
+    def fwd(images_u8: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        zero = _index(0, images_u8.device)
+        with preserved(buffers):
+            return body(images_u8, labels, zero, zero)
+
+    return fwd
+
+
+def grad_sqnorm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sum over parameters of sum(g*g), f32, 0-d."""
+    norms = torch._foreach_norm([g.float() for g in grads])
+    return torch.stack(norms).square().sum()
+
+
+# ---------------------------------------------------------------------------
+# Capture
+# ---------------------------------------------------------------------------
+
+class GraphStep:
+    """``fn()``, a step that reads and writes persistent tensors only, run
+    eagerly on the CPU and as replays of ONE CUDA graph on the card.
+
+    The first call on the card captures it, on a side stream:
+      1. snapshot every tensor of ``state()`` (all the step carries);
+      2. run ``WARMUP_ITERS`` eager iterations, each from the snapshot;
+      3. restore the snapshot, and ``Group``'s collective counts as they
+         were;
+      4. capture ``fn`` into a graph with a private memory pool.
+    So warm-up leaves no trace in the trajectory, and the capture itself
+    executes nothing.  A capture that fails raises; nothing falls back to
+    the eager step.
+
+    ``Group`` counts a collective on the host, which a replay does not
+    reach: each replay adds the captured step's collectives, so that its
+    counts mean "issued to the process group" on either path.  The bnpool
+    kernels count their own runs on the device (``bnpool.executed_counts``);
+    their wrappers' host counts see the warm-up and the capture only."""
+
+    def __init__(self, fn: Callable[[], None],
+                 state: Callable[[], Sequence[torch.Tensor]],
+                 group: Optional[Group], device: torch.device):
+        self.fn = fn
+        self.state = state
+        self.group = group
+        self.device = device
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+
+    def _capture(self) -> None:
+        tensors = list(self.state())
+        counts = self._collectives()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side), preserved(tensors):
+            for _ in range(WARMUP_ITERS):
+                with preserved(tensors):
+                    self.fn()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        self._rewind(counts)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: NCCL's watchdog thread queries events while the
+        # capture runs; that is no capture error of this thread's.
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self.fn()
+        self.collectives = self._collectives() - counts
+        self._rewind(counts)
+        self.graph = graph
+
+    def _collectives(self) -> Counter:
+        return Counter() if self.group is None \
+            else Counter(self.group.total_counts)
+
+    def _rewind(self, total: Counter) -> None:
+        if self.group is not None:
+            self.group.total_counts = Counter(total)
+            self.group.reset_step()
+
+    def __call__(self) -> None:
+        if self.device.type != "cuda":
+            self.fn()
+            return
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        if self.group is not None:
+            self.group.add_replayed(self.collectives)
+
+
+class _Window:
+    """What the train and forward windows share: the staged epoch
+    (``images [NB,b,32,32,3]`` uint8, ``labels [NB,b]`` int64, persistent),
+    the device scalars ``epoch``, ``idx`` (the absolute batch index of the
+    next step) and ``pos`` (the step's place in the window), a loss vector
+    of one slot per batch, and the ``GraphStep`` of ``_step``."""
+
+    def __init__(self, images: torch.Tensor, labels: torch.Tensor,
+                 group: Optional[Group]):
+        dev = images.device
+        self.images, self.labels = images, labels
+        self.epoch = torch.zeros((), dtype=torch.int64, device=dev)
+        self.idx = torch.zeros((), dtype=torch.int64, device=dev)
+        self.pos = torch.zeros((), dtype=torch.int64, device=dev)
+        self.losses = torch.zeros(max(images.shape[0], 1),
+                                  dtype=torch.float32, device=dev)
+        self.step = GraphStep(self._step, self.tensors, group, dev)
+
+    def tensors(self) -> List[torch.Tensor]:
+        return [self.epoch, self.idx, self.pos, self.losses]
+
+    def _batch(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        i = self.idx.reshape(1)
+        return (self.images.index_select(0, i)[0],
+                self.labels.index_select(0, i)[0])
+
+    def _record_loss(self, loss: torch.Tensor) -> None:
+        self.losses.index_copy_(0, self.pos.reshape(1), loss.reshape(1))
+        self.pos.add_(1)
+
+    def _step(self) -> None:
+        raise NotImplementedError
+
+    def _run(self, epoch: int, start: int, w: int) -> None:
+        nb = self.images.shape[0]
+        if w < 1 or start < 0 or start + w > nb:
+            raise ValueError(f"window of {w} from batch {start} does not fit "
+                             f"the {nb} staged batches")
+        self.epoch.fill_(epoch)
+        self.idx.fill_(start)
+        self.pos.fill_(0)
+        for _ in range(w):
+            self.step()
+
+
+class TrainWindow(_Window):
+    """The reference's ``make_train_window``: ``window(epoch, start, w)``
+    trains the staged batches ``start .. start + w - 1`` of ``epoch`` and
+    returns, without synchronising, the device tensor the host drains once:
+    the metric ring's buffer (``ring_capacity`` > 0; one (loss, grad
+    sqnorm, ok, marker) row per step) or the window's losses.
+
+    ``body`` is ``make_step_body``'s (the per-step path's own, so the two
+    share the step and its hooks).  Each step reads its batch at the device
+    index, runs the body, writes its row, and advances the index: on the
+    card, one replay of the captured step."""
+
+    def __init__(self, body: Callable, state: TrainState,
+                 images: torch.Tensor, labels: torch.Tensor, *,
+                 group: Optional[Group] = None,
+                 ring_capacity: int = ringbuf.DEFAULT_CAPACITY):
+        self.body = body
+        self.state = state
+        self.ring = ringbuf.Ring(ring_capacity, images.device) \
+            if ring_capacity else None
+        super().__init__(images, labels, group)
+
+    def tensors(self) -> List[torch.Tensor]:
+        ring = [] if self.ring is None else [self.ring.buf, self.ring.count]
+        return state_tensors(self.state) + super().tensors() + ring
+
+    def _step(self) -> None:
+        loss, grads = self.body(self.state, *self._batch(), self.epoch,
+                                self.idx)
+        with torch.no_grad():
+            if self.ring is not None:
+                self.ring.write((loss, grad_sqnorm(grads), 1.0, self.idx))
+            else:
+                self._record_loss(loss)
+            self.idx.add_(1)
+
+    def __call__(self, epoch: int, start: int, w: int) -> torch.Tensor:
+        self._run(epoch, start, w)
+        if self.ring is None:
+            return self.losses[:w]
+        self.ring.writes += w
+        return self.ring.buf
+
+    def losses_of(self, fetched, start: int, w: int):
+        """The losses of the window of ``w`` steps from batch ``start``, in
+        step order, from the host copy of what ``__call__`` returned.  The
+        ring's markers must be the window's batch indices: a step that did
+        not run on the device leaves a row out."""
+        if self.ring is None:
+            return fetched
+        loss, _, _, steps = ringbuf.split_columns(
+            ringbuf.drain_rows(fetched, self.ring.writes, w))
+        if not np.array_equal(steps, np.arange(start, start + w)):
+            raise RuntimeError(f"the ring holds the rows of batches "
+                               f"{steps.tolist()}, not of the window's "
+                               f"{start}..{start + w - 1}")
+        return loss
+
+
+class FwdWindow(_Window):
+    """The reference's ``make_fwd_window``: ``window(epoch, start, w)`` runs
+    the train step's input transform, forward (train-mode BN) and loss over
+    the same staged batches, no backward or update, and returns the losses
+    [w] without synchronising.  The BN running statistics are restored
+    when the window ends (the reference discards them)."""
+
+    def __init__(self, model: nn.Module, images: torch.Tensor,
+                 labels: torch.Tensor, *, augment: bool = True,
+                 group: Optional[Group] = None, seed: int = 0):
+        self.body = make_forward_body(model, augment=augment, group=group,
+                                      seed=seed)
+        self.buffers = list(model.buffers())
+        super().__init__(images, labels, None)
+
+    def tensors(self) -> List[torch.Tensor]:
+        return self.buffers + super().tensors()
+
+    def _step(self) -> None:
+        loss = self.body(*self._batch(), self.epoch, self.idx)
+        self._record_loss(loss)
+        self.idx.add_(1)
+
+    def __call__(self, epoch: int, start: int, w: int) -> torch.Tensor:
+        with preserved(self.buffers):
+            self._run(epoch, start, w)
+        return self.losses[:w]
+
+
+def make_eval_window(model: nn.Module, group: Optional[Group] = None
+                     ) -> Callable:
+    """evaluate(images [T,b,32,32,3] uint8, labels [T,b]) -> (loss_sum,
+    correct): the reference's ``make_eval_window``, the whole staged test
+    set with running statistics in BN, over the examples with label >= 0
+    (label -1 marks padding), accumulated on the device and summed over
+    the ranks by ONE all-reduce at the end.  Nothing is synchronised."""
+    norm = aug.channel_stats(_device_of(model))
+
+    @torch.no_grad()
+    def evaluate(images: torch.Tensor, labels: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         model.eval()
-        logits = model(aug.to_model_input(aug.normalize(images_u8)))
-        loss_sum, correct = masked_eval_counts(logits, labels)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=images.device)
+        correct = torch.zeros((), dtype=torch.int64, device=images.device)
+        for t in range(images.shape[0]):
+            logits = model(aug.to_model_input(aug.normalize(images[t], norm)))
+            ls, c = masked_eval_counts(logits, labels[t])
+            loss_sum += ls
+            correct += c
         if group is None or group.world == 1:
             return loss_sum, correct
         # Counts up to 2**24 are exact in f32.
@@ -150,4 +523,4 @@ def make_eval_step(model: nn.Module, group: Optional[Group] = None
         dist.all_reduce(both)
         return both[0], both[1].long()
 
-    return step
+    return evaluate

@@ -2,9 +2,13 @@
 
 Step time (forward, backward and update) is averaged over 20-iteration
 windows, the first window is left out of the timing report (warmup), and the
-running loss is printed every 20 iterations.  The caller fences each timed
-region so the timers measure device work, not the enqueue: a value fetch
-(``float(loss)``) or ``torch.cuda.synchronize()``.
+running loss is printed every 20 iterations.  When the caller also times
+the forward pass (the Trainer's ``profile_phases`` mode), the reference's
+"Forward Pass" and "Backward Pass" lines are printed too; the backward
+bucket absorbs sync and update, as the reference's does.  The caller fences
+each timed region so the timers measure device work, not the enqueue: a
+value fetch (``float(loss)``, the window's ring) or
+``torch.cuda.synchronize()``.
 """
 
 from __future__ import annotations
@@ -15,28 +19,40 @@ WINDOW = 20  # report every 20 iterations, skip the first window's timing
 
 
 class WindowedTimers:
-    """Step-time and loss accumulators over 20-iteration windows, warmup
+    """Per-phase accumulators over 20-iteration windows, warmup
     excluded."""
 
     def __init__(self, log: Callable[[str], None] = print):
         self.log = log
         self.iter_number = 1
         self.epoch_loss = 0.0
+        self.forward_time = 0.0
+        self.backward_time = 0.0
         self.total_time = 0.0
         # The full per-iteration loss trajectory.
         self.losses: List[float] = []
         # Steady-state samples (first window excluded) for throughput.
         self.steady_step_times: List[float] = []
+        self.steady_forward_times: List[float] = []
 
-    def record(self, loss: float, step_time: float, *,
+    def record(self, loss: float, step_time: float,
+               forward_time: Optional[float] = None, *,
                steady: bool = True) -> None:
-        """Record one iteration.  ``steady=False`` keeps the sample in the
-        print schedule and totals but out of the steady-state statistics
-        (the ragged final batch, which is smaller than the rest)."""
+        """Record one iteration.  ``forward_time``, when given, is a
+        separately timed forward pass of the same batch; backward is
+        ``step_time - forward_time``.  ``steady=False`` keeps the sample in
+        the print schedule and totals but out of the steady-state
+        statistics (the ragged final batch, which is smaller than the
+        rest)."""
         self.epoch_loss += loss
         self.losses.append(loss)
         self.total_time += step_time
         warmup = self.iter_number <= WINDOW
+        if forward_time is not None:
+            self.forward_time += forward_time
+            self.backward_time += step_time - forward_time
+            if not warmup and steady:
+                self.steady_forward_times.append(forward_time)
         if not warmup and steady:
             self.steady_step_times.append(step_time)
 
@@ -45,8 +61,15 @@ class WindowedTimers:
                      f"{self.epoch_loss / WINDOW}")
             self.epoch_loss = 0.0
             if self.iter_number != WINDOW:  # warmup window: no timing line
+                if forward_time is not None:
+                    self.log(f"Forward Pass time in iter {self.iter_number} "
+                             f"is {self.forward_time / WINDOW}")
+                    self.log(f"Backward Pass time in iter {self.iter_number} "
+                             f"is {self.backward_time / WINDOW}")
                 self.log(f"Average Pass time in iter {self.iter_number} is "
                          f"{self.total_time / WINDOW}")
+            self.forward_time = 0.0
+            self.backward_time = 0.0
             self.total_time = 0.0
         self.iter_number += 1
 

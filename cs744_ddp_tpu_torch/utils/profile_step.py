@@ -2,14 +2,16 @@
 
     python -m cs744_ddp_tpu_torch.utils.profile_step [--strategy NAME]
 
-Runs the Trainer's step exactly as ``Trainer.train_model`` does (batch 256,
-augmentation on, loss fetched after every step) with the given strategy
-(``single`` by default; any other runs at world 1, over NCCL in a world-1
-group, so its collectives are in the trace), warms up, then traces
-``STEPS`` steady steps with ``torch.profiler`` and prints: the wall time per
-step, the device's busy share of it (union of kernel intervals over wall
-time), device time per step by kernel family, each of the port's own
-kernels, and the top kernels.
+Runs the Trainer's step with the given strategy (``single`` by default; any
+other runs at world 1, over NCCL in a world-1 group, so its collectives are
+in the trace), batch 256, augmentation on, along both of the Trainer's
+paths: the per-step path (one eager step per batch, its loss fetched after
+it) and the windowed path (one window of ``STEPS`` replays of the captured
+step, one fetch).  Each is warmed up, then ``STEPS`` steady steps are traced
+with ``torch.profiler``, and it prints: the wall time per step, the
+device's busy share of it (union of kernel intervals over wall time),
+device time per step by kernel family, each of the port's own kernels, and
+the top kernels.
 """
 
 from __future__ import annotations
@@ -63,37 +65,22 @@ def busy_us(intervals) -> float:
     return total
 
 
-def main(argv=None) -> None:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--strategy", default="single",
-                        choices=loop.STRATEGIES)
-    args = parser.parse_args(argv)
-    trainer = loop.Trainer("vgg11", args.strategy, log=lambda s: None)
-    batches = loop._train_batches(trainer.train_split, trainer.global_batch,
-                                  0, trainer.seed)
-
-    def step() -> float:
-        imgs, labs = next(batches)
-        x, y = trainer._to_device(imgs, labs)
-        return float(trainer.train_step(trainer.state, x, y,
-                                        trainer.generator))
-
-    for _ in range(WARMUP):
-        step()
+def report(label: str, run, steps: int) -> None:
+    """Trace ``run()``, which trains ``steps`` steps and fetches, and print
+    the wall time per step, the device's busy share, device time per step
+    by kernel family, the port's own kernels and the top kernels."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(STEPS):
-            step()
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    card = torch.cuda.get_device_name(0)
-    print(f"[profile] {card}, {args.strategy}: {STEPS} steps, wall "
-          f"{wall_us / STEPS / 1e3:.3f} ms/step")
+    print(f"[profile] {label}: {steps} steps, wall "
+          f"{wall_us / steps / 1e3:.3f} ms/step")
     if not kernels:
-        print("[profile] the profiler recorded no device events")
+        print(f"[profile] {label}: the profiler recorded no device events")
         return
     busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
     by_family = defaultdict(float)
@@ -103,20 +90,51 @@ def main(argv=None) -> None:
         by_family[family(e.name)] += us
         by_name[e.name][0] += us
         by_name[e.name][1] += 1
-    print(f"[profile] device busy {busy / STEPS / 1e3:.3f} ms/step = "
-          f"{100 * busy / wall_us:.1f}% of wall; idle "
-          f"{100 * (1 - busy / wall_us):.1f}%")
+    print(f"[profile] {label}: device busy {busy / steps / 1e3:.3f} ms/step "
+          f"= {100 * busy / wall_us:.1f}% of wall; idle "
+          f"{100 * (1 - busy / wall_us):.1f}%; {len(kernels) // steps} "
+          f"kernels/step")
     for fam, us in sorted(by_family.items(), key=lambda kv: -kv[1]):
-        print(f"[profile] family {fam}: {us / STEPS / 1e3:.4f} ms/step "
-              f"({100 * us / busy:.1f}% of device time)")
+        print(f"[profile] {label}: family {fam}: {us / steps / 1e3:.4f} "
+              f"ms/step ({100 * us / busy:.1f}% of device time)")
     for name, (us, n) in sorted(by_name.items()):
         if family(name) == "bnpool kernels":
-            print(f"[profile] bnpool kernel {us / STEPS / 1e3:.4f} ms/step "
-                  f"x{n // STEPS}/step  {name[:110]}")
+            print(f"[profile] {label}: bnpool kernel {us / steps / 1e3:.4f} "
+                  f"ms/step x{n // steps}/step  {name[:110]}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (us, n) in top:
-        print(f"[profile] kernel {us / STEPS / 1e3:.4f} ms/step "
-              f"x{n // STEPS}/step  {name[:110]}")
+        print(f"[profile] {label}: kernel {us / steps / 1e3:.4f} ms/step "
+              f"x{n // steps}/step  {name[:110]}")
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--strategy", default="single",
+                        choices=loop.STRATEGIES)
+    args = parser.parse_args(argv)
+    trainer = loop.Trainer("vgg11", args.strategy, log=lambda s: None)
+    card = torch.cuda.get_device_name(0)
+    batches = enumerate(loop._train_batches(
+        trainer.train_split, trainer.global_batch, 0, trainer.seed))
+
+    def step() -> float:
+        it, (imgs, labs) = next(batches)
+        x, y = trainer._to_device(imgs, labs)
+        return float(trainer.train_step(trainer.state, x, y, 0, it))
+
+    def steps() -> None:
+        for _ in range(STEPS):
+            step()
+
+    for _ in range(WARMUP):
+        step()
+    report(f"{card}, {args.strategy}, per-step path", steps, STEPS)
+
+    window = trainer.train_window()
+    for start in range(0, WARMUP, STEPS):       # capture, then warm
+        window(0, start, STEPS).cpu()
+    report(f"{card}, {args.strategy}, windowed path (graph replays)",
+           lambda: window(0, WARMUP, STEPS).cpu(), STEPS)
 
 
 if __name__ == "__main__":

@@ -283,6 +283,7 @@ def test_cuda_kernels_match_plain_version(dtype, shape):
     got = bnpool.bnpool_backward(xhat, dp, g, b, inv)
     torch.cuda.synchronize()
     assert (bnpool.bnpool_sums.launches, bnpool.bnpool_dx.launches) == (1, 1)
+    assert bnpool.executed_counts() == {"bnpool_sums": 1, "bnpool_dx": 1}
     want = bnpool.bnpool_backward_reference(xhat, dp, g, b, inv)
     tol = dict(rtol=5e-4, atol=1e-4) if dtype == torch.float32 \
         else dict(rtol=2e-2, atol=2e-2)

@@ -88,10 +88,18 @@ def test_crop_flip_equals_numpy_pad_crop_flip():
 
 
 def test_augment_is_seeded_and_in_range():
+    """The draw is keyed by (seed, rank, epoch, batch index): the same key
+    gives the same batch, another batch index another one."""
     u8 = torch.from_numpy(tcifar._synthetic_split(8, 0).images.copy())
-    a = taug.augment(u8, torch.Generator().manual_seed(5))
-    b = taug.augment(u8, torch.Generator().manual_seed(5))
+    key = taug.stream_key(5, 0)
+    epoch, idx = torch.tensor(0), torch.tensor(3)
+    a = taug.augment(u8, key, epoch, idx)
+    b = taug.augment(u8, key, torch.tensor(0), torch.tensor(3))
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert not torch.equal(a, taug.augment(u8, key, epoch, torch.tensor(4)))
+    offsets, flips = taug.draws(8, key, epoch, idx)
+    want = taug.normalize(taug.crop_flip(u8, offsets, flips))
+    torch.testing.assert_close(a, want, rtol=0, atol=0)
     assert a.shape == (8, 32, 32, 3) and a.dtype == torch.float32
     lo = taug.normalize(torch.zeros((1, 1, 1, 3), dtype=torch.uint8))
     hi = taug.normalize(torch.full((1, 1, 1, 3), 255, dtype=torch.uint8))

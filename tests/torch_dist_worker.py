@@ -18,7 +18,11 @@ once for all of them):
     writes the step's collective counts, and for ``overlap`` how many
     buckets were launched when the gradient of ``blocks.0.conv.weight``
     arrived;
-  * ``single``     — whether ``single`` refuses this world.
+  * ``single``     — whether ``single`` refuses this world;
+  * ``window``     — for each named strategy, a narrow VGG trained by the
+    Trainer's windowed path and by its per-step path (``profile_phases``)
+    on the fixture data, augmentation on; writes both states (parameters,
+    buffers, momentum, comm residuals), losses and collective counts.
 
 ``start`` starts the ranks; ``Ranks.wait`` waits for them, killing them
 at the time limit.
@@ -142,7 +146,7 @@ def task_step(task: dict, group, rank: int, outdir: str) -> None:
             rows = slice(rank * per, (rank + 1) * per)
             x = torch.from_numpy(batches["images"][s][rows].copy())
             y = torch.from_numpy(batches["labels"][s][rows].astype(np.int64))
-            losses.append(float(tr.train_step(tr.state, x, y, tr.generator)))
+            losses.append(float(tr.train_step(tr.state, x, y, 0, s)))
         results[f"{name}/losses"] = np.array(losses)
         for k, v in tr.state.model.state_dict().items():
             results[f"{name}/sd/{k}"] = v.contiguous().numpy()
@@ -193,8 +197,34 @@ def task_single(task: dict, group, rank: int, outdir: str) -> None:
         json.dump({"refused": refused}, f)
 
 
+def task_window(task: dict, group, rank: int, outdir: str) -> None:
+    from cs744_ddp_tpu_torch.models import vgg
+    from cs744_ddp_tpu_torch.ops.sgd import SGDConfig
+    from cs744_ddp_tpu_torch.train.loop import Trainer
+    from cs744_ddp_tpu_torch.train.step import state_tensors
+
+    vgg.CFG["VGGT"] = NARROW_VGG
+    results = {}
+    for name in task["strategies"]:
+        for path, per_step in (("window", False), ("per-step", True)):
+            tr = Trainer("vggt", name, global_batch=task["global_batch"],
+                         data_dir=ASSETS, device="cpu",
+                         sgd_cfg=SGDConfig(lr=task["lr"]),
+                         limit_train_batches=task["steps"],
+                         profile_phases=per_step, log=lambda s: None)
+            tr.train_model(0)
+            pre = f"{name}/{path}/"
+            for i, t in enumerate(state_tensors(tr.state)):
+                results[f"{pre}state/{i}"] = t.contiguous().numpy()
+            results[pre + "losses"] = np.array(tr.last_epoch_timers.losses)
+            results[pre + "counts"] = np.array(
+                [tr.group.total_counts[k] for k in tr.group.KINDS])
+    np.savez(os.path.join(outdir, f"window_r{rank}.npz"), **results)
+
+
 TASKS = {"strategies": task_strategies, "step": task_step,
-         "counts": task_counts, "single": task_single}
+         "counts": task_counts, "single": task_single,
+         "window": task_window}
 
 
 def main() -> None:
