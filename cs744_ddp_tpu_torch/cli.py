@@ -1,8 +1,10 @@
-"""Command line of the port: train VGG-11 on CIFAR-10 with any
-gradient-sync strategy, one process per GPU, with the reference training
-script's print schedule.
+"""Command line of the port: train any model of the zoo (VGG-11, the
+reference's, by default; VGG-13/16/19, ResNet-18/34) on CIFAR-10 in f32 or
+bf16 mixed precision, with any gradient-sync strategy, one process per
+GPU, with the reference training script's print schedule.
 
     python -m cs744_ddp_tpu_torch.cli                            # allreduce, 1 GPU
+    python -m cs744_ddp_tpu_torch.cli --model resnet18 --precision bf16
     python -m cs744_ddp_tpu_torch.cli --num-devices 4 --strategy ddp
     python -m cs744_ddp_tpu_torch.cli --device cpu --num-devices 2
     python -m cs744_ddp_tpu_torch.cli --profile-phases          # fwd/bwd split
@@ -29,16 +31,18 @@ import torch
 import torch.distributed as dist
 
 from .device import resolve_device
+from .models import get_model
 from .ops import _build
 from .ops.sgd import SGDConfig
 from .parallel.mesh import DEFAULT_PORT, initialize_distributed
-from .train.loop import GLOBAL_BATCH, STRATEGIES, Trainer
+from .train.loop import GLOBAL_BATCH, PRECISIONS, STRATEGIES, Trainer
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
         prog="python -m cs744_ddp_tpu_torch.cli",
-        description="Train VGG-11 on CIFAR-10 (PyTorch/CUDA port).")
+        description="Train a VGG or ResNet on CIFAR-10 (PyTorch/CUDA "
+                    "port).")
     p.add_argument("--master", "--coordinator", dest="master", default=None,
                    help="rendezvous host of a multi-process run "
                         "(reference --master)")
@@ -58,6 +62,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="gradient-sync strategy")
     p.add_argument("--compress-rank", type=int, default=None,
                    help="PowerSGD approximation rank (default 4)")
+    p.add_argument("--model", default="vgg11",
+                   help="vgg11/13/16/19, resnet18/34, or any name "
+                        "registered with models.register_model (validated "
+                        "by the model zoo, not argparse)")
+    p.add_argument("--precision", default="f32", choices=sorted(PRECISIONS),
+                   help="f32 = reference parity; bf16 = mixed precision "
+                        "(bf16 activations, convolutions and matmuls; f32 "
+                        "master weights, optimizer, BN statistics and "
+                        "loss)")
     p.add_argument("--epochs", type=int, default=1)
     p.add_argument("--batch-size", type=int, default=GLOBAL_BATCH,
                    help="global batch size, split across the ranks")
@@ -95,7 +108,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def _train(args: argparse.Namespace) -> None:
     trainer = Trainer(
-        "vgg11", args.strategy, compress_rank=args.compress_rank,
+        args.model, args.strategy, precision=args.precision,
+        compress_rank=args.compress_rank,
         global_batch=args.batch_size, data_dir=args.data_dir,
         device=args.device, augment=not args.no_augment,
         sgd_cfg=SGDConfig(lr=args.lr, momentum=args.momentum,
@@ -127,6 +141,7 @@ def _spawned_rank(local: int, args: argparse.Namespace) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
+    get_model(args.model)     # an unknown name fails here, not in each rank
     if args.num_devices is None:
         if args.num_nodes > 1:
             initialize_distributed(args.master, args.num_nodes, args.rank,

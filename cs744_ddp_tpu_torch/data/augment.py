@@ -107,6 +107,13 @@ def augment(images_u8: torch.Tensor, key: int, epoch: torch.Tensor,
     return normalize(crop_flip(images_u8, offsets, flips), stats)
 
 
+def cast(x: torch.Tensor, compute_dtype: Optional[torch.dtype]
+         ) -> torch.Tensor:
+    """The model's input in the compute dtype (None: as it is): the
+    reference's ``maybe_cast``, applied after normalize and augment."""
+    return x if compute_dtype is None else x.to(compute_dtype)
+
+
 def to_model_input(x_nhwc: torch.Tensor) -> torch.Tensor:
     """[N,H,W,C] -> the model's NCHW-logical view.  For a contiguous NHWC
     tensor this view is already ``torch.channels_last``: no copy."""

@@ -1,15 +1,30 @@
-"""Carry VGG weights, and a compressed strategy's comm state, between the
-reference package's pytree layout and the port's.
+"""Carry a model's weights, and a compressed strategy's comm state, between
+the reference package's pytree layout and the port's, for every model of
+the zoo.
 
-The reference layout (``models/vgg.py::init`` there), as NumPy arrays:
-``params = {"conv": [{"w": HWIO, "b"}], "bn": [{"gamma", "beta"}],
-"fc1": {"w": [in, out], "b"}}`` and ``state = {"bn": [{"mean", "var"}]}``.
-Conv weights go HWIO <-> OIHW and linear weights [in,out] <-> [out,in];
-BatchNorm parameters and running statistics carry over as they are.
+The reference layout is a tree of dicts and lists of NumPy arrays: a
+layer is a dict of ``{"w", "b"}`` (conv HWIO, linear [in, out]; no ``"b"``
+for a bias-free conv) or ``{"gamma", "beta"}`` (BatchNorm), and the BN
+running statistics are a second tree of ``{"mean", "var"}``.  The port's
+names follow the tree's keys and list indices, joined by dots:
+
+  * ResNet: ``params["blocks"][3]["down_conv"]["w"]`` is
+    ``blocks.3.down_conv.weight``, ``state["stem_bn"]["var"]`` is
+    ``stem_bn.running_var``;
+  * VGG: the one tree whose lists run across the blocks:
+    ``params["conv"][i]`` and ``params["bn"][i]`` are the port's
+    ``blocks.i.conv`` and ``blocks.i.bn``.
+
+A module whose name contains ``bn`` is a BatchNorm (weight/bias are gamma/
+beta), any other holds w/b.  Conv weights go HWIO <-> OIHW (3x3 and 1x1
+alike), linear weights [in,out] <-> [out,in]; vectors carry over as they
+are.  Nothing counts blocks: both directions walk the names they are given.
 
 Comm state: the reference stacks every worker's residuals (a params-like
 pytree with a leading world axis) and keys PowerSGD's Q factors by leaf
-index (``"000"``, ... in ``jax.tree.leaves`` order of the params); each
+index (``"000"``, ... in ``jax.tree.leaves`` order of the params, which
+sorts dict keys: for a ResNet ``blocks[i].{bn1, bn2, conv1, conv2,
+down_bn, down_conv}``, then ``fc``, ``stem_bn``, ``stem_conv``).  Each
 port rank holds its own residuals as a list in parameter order and its Q
 factors keyed by parameter name, in the reference's matrix view (so a Q
 needs no layout change).
@@ -17,10 +32,15 @@ needs no layout change).
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+Path = Tuple[Any, ...]
+_CROSS = ("conv", "bn")          # the VGG's lists that run across blocks
+_STATS = {"mean": "running_mean", "var": "running_var"}
+_SKIPPED = ("num_batches_tracked",)   # a port buffer the reference lacks
 
 
 def _t(a) -> torch.Tensor:
@@ -33,85 +53,123 @@ def _np(v) -> np.ndarray:
     return np.asarray(v)
 
 
+def _walk(tree, path: Path = ()) -> Iterator[Tuple[Path, Any]]:
+    """(path, leaf) in ``jax.tree.leaves`` order: dict keys sorted, lists
+    in order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _walk(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _walk(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def _build(items) -> Any:
+    """{path: leaf} pairs -> the nested dicts and lists they name (a dict
+    whose keys are the ints 0..n-1 becomes a list)."""
+    root: Dict = {}
+    for path, leaf in items:
+        node = root
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: listify(v) for k, v in node.items()}
+        if out and all(isinstance(k, int) for k in out):
+            if sorted(out) != list(range(len(out))):
+                raise ValueError(f"list indices {sorted(out)} have gaps")
+            return [out[i] for i in range(len(out))]
+        return out
+
+    return listify(root)
+
+
+def port_name(path: Path) -> str:
+    """A reference leaf's path -> the port's parameter or buffer name."""
+    *mods, leaf = path
+    if len(mods) == 2 and mods[0] in _CROSS and isinstance(mods[1], int):
+        mods = ["blocks", mods[1], mods[0]]
+    if leaf in _STATS:
+        attr = _STATS[leaf]
+    else:
+        attr = {"w": "weight", "gamma": "weight", "b": "bias",
+                "beta": "bias"}[leaf]
+    return ".".join(str(m) for m in mods) + "." + attr
+
+
+def jax_path(name: str) -> Path:
+    """A port parameter or buffer name -> the reference leaf's path."""
+    *mods, attr = name.split(".")
+    bn = "bn" in mods[-1]
+    mods = [int(m) if m.isdigit() else m for m in mods]
+    if len(mods) == 3 and mods[0] == "blocks" and mods[2] in _CROSS:
+        mods = [mods[2], mods[1]]
+    leaf = {"weight": "gamma" if bn else "w", "bias": "beta" if bn else "b",
+            "running_mean": "mean", "running_var": "var"}[attr]
+    return tuple(mods) + (leaf,)
+
+
+def leaf_order(names: Sequence[str]) -> List[str]:
+    """Port parameter names in the reference's ``jax.tree.leaves`` order."""
+    return sorted(names, key=jax_path)
+
+
+def _to_port(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.ndim == 4:                       # HWIO -> OIHW
+        a = np.transpose(a, (3, 2, 0, 1))
+    elif a.ndim == 2:                     # [in, out] -> [out, in]
+        a = a.T
+    return _t(a)
+
+
+def _to_reference(v) -> np.ndarray:
+    a = _np(v)
+    if a.ndim == 4:                       # OIHW -> HWIO
+        a = np.transpose(a, (2, 3, 1, 0))
+    elif a.ndim == 2:
+        a = a.T
+    return np.ascontiguousarray(a)
+
+
 def params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Reference params (or a params-like pytree) -> {port parameter name:
-    tensor}, in the port's registration order."""
-    sd = {}
-    for i, (conv, bn) in enumerate(zip(params["conv"], params["bn"])):
-        p = f"blocks.{i}."
-        sd[p + "conv.weight"] = _t(np.transpose(conv["w"], (3, 2, 0, 1)))
-        sd[p + "conv.bias"] = _t(conv["b"])
-        sd[p + "bn.weight"] = _t(bn["gamma"])
-        sd[p + "bn.bias"] = _t(bn["beta"])
-    sd["fc1.weight"] = _t(np.transpose(params["fc1"]["w"]))
-    sd["fc1.bias"] = _t(params["fc1"]["b"])
-    return sd
+    tensor}, in the reference's leaf order."""
+    return {port_name(p): _to_port(a) for p, a in _walk(params)}
 
 
 def params_to_jax(named: Dict[str, Any]) -> Dict[str, Any]:
     """{port parameter name: tensor or array} -> reference params."""
-
-    def a(key):
-        return _np(named[key])
-
-    params = {"conv": [], "bn": []}
-    for i in range(_num_blocks(named)):
-        p = f"blocks.{i}."
-        params["conv"].append({
-            "w": np.ascontiguousarray(
-                np.transpose(a(p + "conv.weight"), (2, 3, 1, 0))),
-            "b": a(p + "conv.bias")})
-        params["bn"].append({"gamma": a(p + "bn.weight"),
-                             "beta": a(p + "bn.bias")})
-    params["fc1"] = {"w": np.ascontiguousarray(a("fc1.weight").T),
-                     "b": a("fc1.bias")}
-    return params
-
-
-def _num_blocks(names) -> int:
-    return 1 + max(int(k.split(".")[1]) for k in names
-                   if k.startswith("blocks."))
-
-
-def param_names(num_blocks: int) -> List[str]:
-    """The port's parameter names in registration order."""
-    names = []
-    for i in range(num_blocks):
-        names += [f"blocks.{i}.{m}" for m in ("conv.weight", "conv.bias",
-                                              "bn.weight", "bn.bias")]
-    return names + ["fc1.weight", "fc1.bias"]
-
-
-def jax_leaf_names(num_blocks: int) -> List[str]:
-    """The port's parameter names in the reference's leaf order
-    (``jax.tree.leaves`` sorts dict keys: bn beta/gamma, conv b/w, fc1
-    b/w)."""
-    bn = [f"blocks.{i}.bn.{m}" for i in range(num_blocks)
-          for m in ("bias", "weight")]
-    conv = [f"blocks.{i}.conv.{m}" for i in range(num_blocks)
-            for m in ("bias", "weight")]
-    return bn + conv + ["fc1.bias", "fc1.weight"]
+    return _build((jax_path(n), _to_reference(v)) for n, v in named.items())
 
 
 def from_jax(params: Dict[str, Any], state: Dict[str, Any]
              ) -> Dict[str, torch.Tensor]:
     """Reference (params, state) of NumPy arrays -> the port's state_dict."""
     sd = params_from_jax(params)
-    for i, st in enumerate(state["bn"]):
-        p = f"blocks.{i}.bn."
-        sd[p + "running_mean"] = _t(st["mean"])
-        sd[p + "running_var"] = _t(st["var"])
-        sd[p + "num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    for path, a in _walk(state):
+        name = port_name(path)
+        sd[name] = _t(a)
+        if path[-1] == "mean":
+            sd[name.rsplit(".", 1)[0] + ".num_batches_tracked"] = \
+                torch.tensor(0, dtype=torch.long)
     return sd
 
 
 def to_jax(sd: Dict[str, torch.Tensor]
            ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-    """The port's state_dict -> reference (params, state) of NumPy arrays."""
-    state = {"bn": [{"mean": sd[f"blocks.{i}.bn.running_mean"].cpu().numpy(),
-                     "var": sd[f"blocks.{i}.bn.running_var"].cpu().numpy()}
-                    for i in range(_num_blocks(sd))]}
-    return params_to_jax(sd), state
+    """The port's state_dict -> reference (params, state) of NumPy
+    arrays."""
+    stats = {n for n in sd if n.endswith(tuple(_STATS.values()))}
+    params = {n: v for n, v in sd.items()
+              if n not in stats and not n.endswith(_SKIPPED)}
+    state = _build((jax_path(n), _np(sd[n])) for n in stats)
+    return params_to_jax(params), state
 
 
 def _rank_slice(tree, rank: int):
@@ -122,25 +180,30 @@ def _rank_slice(tree, rank: int):
     return np.asarray(tree)[rank]
 
 
-def comm_from_jax(comm: Dict[str, Any], rank: int) -> Dict[str, Any]:
+def comm_from_jax(comm: Dict[str, Any], rank: int,
+                  names: Sequence[str]) -> Dict[str, Any]:
     """Rank ``rank``'s slice of the reference's stacked comm state (NumPy
-    arrays) -> the port's comm state for that rank."""
+    arrays) -> the port's comm state for that rank.  ``names``: the port
+    parameter names of the residual list and the Q factors, in their
+    order (the model's registration order)."""
     res = params_from_jax(_rank_slice(comm["residual"], rank))
-    out = {"residual": list(res.values())}
+    if sorted(names) != sorted(res):
+        raise ValueError("names do not match the comm state's leaves")
+    out = {"residual": [res[n] for n in names]}
     if "q" in comm:
-        names = jax_leaf_names(_num_blocks(res))
-        order = {n: k for k, n in enumerate(res)}
-        qs = {names[int(k)]: _t(np.asarray(v)[rank])
+        leaves = list(res)                # reference leaf order
+        qs = {leaves[int(k)]: _t(np.asarray(v)[rank])
               for k, v in comm["q"].items()}
-        out["q"] = dict(sorted(qs.items(), key=lambda kv: order[kv[0]]))
+        out["q"] = {n: qs[n] for n in names if n in qs}
     return out
 
 
-def comm_to_jax(per_rank: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
+def comm_to_jax(per_rank: Sequence[Dict[str, Any]],
+                names: Sequence[str]) -> Dict[str, Any]:
     """Every rank's port comm state (tensors or arrays), in rank order ->
-    the reference's stacked layout (NumPy arrays)."""
-    names = param_names((len(per_rank[0]["residual"]) - 2) // 4)
-    trees = [params_to_jax(dict(zip(names, c["residual"])))
+    the reference's stacked layout (NumPy arrays).  ``names``: the port
+    parameter names of the residual list, in its order."""
+    trees = [params_to_jax(dict(zip(names, c["residual"], strict=True)))
              for c in per_rank]
 
     def stack(*leaves):
@@ -152,8 +215,7 @@ def comm_to_jax(per_rank: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
 
     out = {"residual": stack(*trees)}
     if "q" in per_rank[0]:
-        index = {n: k for k, n in enumerate(
-            jax_leaf_names((len(names) - 2) // 4))}
+        index = {n: k for k, n in enumerate(leaf_order(names))}
         out["q"] = {f"{index[n]:03d}": np.stack(
             [_np(c["q"][n]) for c in per_rank])
             for n in per_rank[0]["q"]}

@@ -1,10 +1,19 @@
-"""Layers of the VGG blocks, with the reference training script's torch
+"""Layers of the model zoo, with the reference training script's torch
 semantics and PyTorch-default initialization.
 
-  * conv: ``nn.Conv2d(3x3, pad 1, bias)``; linear: ``nn.Linear``.
+  * ``Conv2d``, ``Linear``: compute follows the ACTIVATION dtype, as the
+    reference package's ``conv2d_apply``/``linear_apply``: the master
+    weight and bias stay f32 and are cast to ``x.dtype`` at the point of
+    use (no copy for f32 input), so bf16 activations run a bf16 conv or
+    matmul while gradients, momentum and comm state stay f32.
+    ``conv2d`` makes any kernel size, stride, padding, with or without a
+    bias (the ResNet's bias-free 3x3 and 1x1 convs); ``conv3x3`` is the
+    VGG's (pad 1, bias).
   * ``batchnorm``: library BatchNorm2d for the blocks without a pool —
     normalize with the biased batch variance, update the running statistics
-    with the unbiased variance at momentum 0.1.
+    with the unbiased variance at momentum 0.1.  With bf16 input and f32
+    parameters it normalizes in f32, returns bf16 and keeps its running
+    statistics f32.
   * ``BnReluPool2d``: BatchNorm2d -> ReLU -> MaxPool2x2 for the blocks that
     end in a pool, with the same parameters, buffers and running-statistics
     rule; in training it runs the fused op (``ops/bnpool.py``), whose
@@ -22,16 +31,38 @@ from ..ops.bnpool import BN_EPS, BnReluPool
 BN_MOMENTUM = 0.1
 
 
-def conv3x3(in_ch: int, out_ch: int) -> nn.Conv2d:
-    return nn.Conv2d(in_ch, out_ch, kernel_size=3, padding=1, bias=True)
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in the activation's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
+                        self.padding, self.dilation, self.groups)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in the activation's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+def conv2d(in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1,
+           padding: int = 1, bias: bool = True) -> Conv2d:
+    return Conv2d(in_ch, out_ch, kernel_size=kernel_size, stride=stride,
+                  padding=padding, bias=bias)
+
+
+def conv3x3(in_ch: int, out_ch: int) -> Conv2d:
+    return conv2d(in_ch, out_ch)
 
 
 def batchnorm(ch: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(ch, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
-def linear(in_features: int, out_features: int) -> nn.Linear:
-    return nn.Linear(in_features, out_features)
+def linear(in_features: int, out_features: int) -> Linear:
+    return Linear(in_features, out_features)
 
 
 class BnReluPool2d(nn.BatchNorm2d):

@@ -44,7 +44,8 @@ class ConvBlock(nn.Module):
 
 
 class VGG(nn.Module):
-    """x: [N,3,32,32] f32 (channels_last) -> logits [N,10]."""
+    """x: [N,3,32,32] f32 or bf16 (channels_last) -> logits [N,10] in
+    x's dtype."""
 
     def __init__(self, name: str = "VGG11"):
         super().__init__()

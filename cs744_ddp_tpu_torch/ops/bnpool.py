@@ -45,6 +45,15 @@ _SOURCE = "bnpool.cu"
 _SUM_THREADS = 256
 _SUM_BLOCKS = 256
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# The kernels by variant, each wrapper at each dtype: the keys of
+# ``launch_counts`` and ``executed_counts``.
+KERNELS = ("bnpool_sums", "bnpool_dx", "bnpool_sums_bf16", "bnpool_dx_bf16")
+
+
+def kernel_name(wrapper: str, dtype: torch.dtype) -> str:
+    """The variant of ``wrapper`` ("bnpool_sums" or "bnpool_dx") that runs
+    on tensors of ``dtype``."""
+    return wrapper if dtype == torch.float32 else f"{wrapper}_bf16"
 
 
 def _c(v: torch.Tensor) -> torch.Tensor:
@@ -225,32 +234,31 @@ def _check_vector_path(xhat, tensors) -> None:
                              f"tensors; one starts at {t.data_ptr():#x}")
 
 
-# Kernel runs counted on the device, by device index: int64 [2], the sums
-# kernel's and the dx kernel's.  Each run of a kernel adds one, so a launch
-# inside a CUDA graph counts on every replay (the wrapper's host count
-# ``launches`` sees it once, at capture).
+# Kernel runs counted on the device, by device index: int64, one for each
+# of ``KERNELS``.  Each run of a kernel adds one, so a launch inside a CUDA
+# graph counts on every replay (the wrappers' host count ``_LAUNCHES``
+# sees it once, at capture).
 _EXECUTED: Dict[int, torch.Tensor] = {}
-_SUMS, _DX = 0, 1
+_LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
-def _executed(device: torch.device, which: int) -> int:
-    """The address of the device counter of kernel ``which``."""
+def _executed(device: torch.device, name: str) -> int:
+    """The address of the device counter of kernel variant ``name``."""
     counter = _EXECUTED.get(device.index)
     if counter is None:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("the bnpool kernels' run counter is made at "
                                "their first eager launch on a device; a "
                                "CUDA graph capture came first")
-        counter = torch.zeros(2, dtype=torch.int64, device=device)
+        counter = torch.zeros(len(KERNELS), dtype=torch.int64, device=device)
         _EXECUTED[device.index] = counter
-    return counter.data_ptr() + which * counter.element_size()
+    return counter.data_ptr() + KERNELS.index(name) * counter.element_size()
 
 
 def bnpool_sums(xhat, dp, gamma, beta) -> torch.Tensor:
     """Phase 1: [2, C] f32 (sum dy, sum dy*xhat).  CUDA tensors launch the
-    kernel once (``bnpool_sums.launches`` counts it; the kernel counts its
-    runs in ``executed_counts``) or raise; CPU tensors take the plain
-    version."""
+    kernel once (``launch_counts`` counts it; the kernel counts its runs in
+    ``executed_counts``) or raise; CPU tensors take the plain version."""
     _check_inputs(xhat, dp, (gamma, beta))
     if not xhat.is_cuda:
         return bnpool_sums_reference(xhat, dp, gamma, beta)
@@ -262,23 +270,21 @@ def bnpool_sums(xhat, dp, gamma, beta) -> torch.Tensor:
     sums = torch.empty((2, c), dtype=torch.float32, device=xhat.device)
     lib = _build.library(_SOURCE)
     fn = getattr(lib, f"bnpool_sums_{_SUFFIX[xhat.dtype]}")
+    name = kernel_name("bnpool_sums", xhat.dtype)
     with torch.cuda.device(xhat.device):
         stream = torch.cuda.current_stream(xhat.device).cuda_stream
         err = fn(xhat.data_ptr(), dp.data_ptr(), gamma.data_ptr(),
                  beta.data_ptr(), partial.data_ptr(), sums.data_ptr(), n, h,
-                 w, c, blocks, _executed(xhat.device, _SUMS), stream)
+                 w, c, blocks, _executed(xhat.device, name), stream)
     _build.check(lib, err, "bnpool_sums")
-    bnpool_sums.launches += 1
+    _LAUNCHES[name] += 1
     return sums
-
-
-bnpool_sums.launches = 0
 
 
 def bnpool_dx(xhat, dp, gamma, beta, inv, sums) -> torch.Tensor:
     """Phase 2: dx in xhat's dtype, channels_last.  CUDA tensors launch the
-    kernel (``bnpool_dx.launches`` counts it, ``executed_counts`` its runs);
-    CPU tensors take the plain version."""
+    kernel (``launch_counts`` counts it, ``executed_counts`` its runs); CPU
+    tensors take the plain version."""
     _check_inputs(xhat, dp, (gamma, beta, inv), sums)
     if not xhat.is_cuda:
         return bnpool_dx_reference(xhat, dp, gamma, beta, inv, sums)
@@ -286,43 +292,55 @@ def bnpool_dx(xhat, dp, gamma, beta, inv, sums) -> torch.Tensor:
     dx = torch.empty_like(xhat, memory_format=torch.channels_last)
     lib = _build.library(_SOURCE)
     fn = getattr(lib, f"bnpool_dx_{_SUFFIX[xhat.dtype]}")
+    name = kernel_name("bnpool_dx", xhat.dtype)
     with torch.cuda.device(xhat.device):
         stream = torch.cuda.current_stream(xhat.device).cuda_stream
         err = fn(xhat.data_ptr(), dp.data_ptr(), gamma.data_ptr(),
                  beta.data_ptr(), inv.data_ptr(), sums.data_ptr(),
-                 dx.data_ptr(), n, h, w, c, _executed(xhat.device, _DX),
+                 dx.data_ptr(), n, h, w, c, _executed(xhat.device, name),
                  stream)
     _build.check(lib, err, "bnpool_dx")
-    bnpool_dx.launches += 1
+    _LAUNCHES[name] += 1
     return dx
-
-
-bnpool_dx.launches = 0
 
 
 def reset_launch_counts() -> None:
     """Zero the wrappers' launch counts and the kernels' run counters."""
-    bnpool_sums.launches = 0
-    bnpool_dx.launches = 0
+    _LAUNCHES.update(dict.fromkeys(KERNELS, 0))
     for counter in _EXECUTED.values():
         counter.zero_()
 
 
 def launch_counts() -> Dict[str, int]:
-    """Launches so far, by wrapper: eager launches and launches recorded
-    into a CUDA graph, each once."""
-    return {"bnpool_sums": bnpool_sums.launches,
-            "bnpool_dx": bnpool_dx.launches}
+    """Launches so far, by kernel variant (``KERNELS``): eager launches and
+    launches recorded into a CUDA graph, each once."""
+    return dict(_LAUNCHES)
 
 
 def executed_counts() -> Dict[str, int]:
-    """Runs of each kernel so far, counted by the kernels on the device,
-    over every device (a graph's replays included).  It synchronises."""
-    total = [0, 0]
+    """Runs of each kernel variant so far (``KERNELS``), counted by the
+    kernels on the device, over every device (a graph's replays
+    included).  It synchronises."""
+    total = [0] * len(KERNELS)
     for counter in _EXECUTED.values():
         for i, v in enumerate(counter.tolist()):
             total[i] += v
-    return {"bnpool_sums": total[_SUMS], "bnpool_dx": total[_DX]}
+    return dict(zip(KERNELS, total))
+
+
+def profiled_runs(names: Dict[str, int]) -> Dict[str, int]:
+    """Runs of each kernel variant in a ``torch.profiler`` trace, from the
+    counts of its device events by name (the kernels' template names:
+    ``sums_kernel<float>``, ``dx_kernel<__nv_bfloat16>``, ...)."""
+    runs = dict.fromkeys(KERNELS, 0)
+    for event, n in names.items():
+        for wrapper, frag in (("bnpool_sums", "sums_kernel"),
+                              ("bnpool_dx", "dx_kernel")):
+            if frag in event:
+                dtype = torch.bfloat16 if "bfloat16" in event \
+                    else torch.float32
+                runs[kernel_name(wrapper, dtype)] += n
+    return runs
 
 
 def bnpool_backward(xhat, dp, gamma, beta, inv):

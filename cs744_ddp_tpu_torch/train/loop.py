@@ -49,6 +49,8 @@ from . import step as steplib
 GLOBAL_BATCH = 256      # the reference's batch_size
 SEED = 0                # the reference's torch.manual_seed(0)
 STRATEGIES = tuple(strategies.STRATEGIES)
+# --precision -> the activations' dtype (None: f32 throughout).
+PRECISIONS = {"f32": None, "bf16": torch.bfloat16}
 
 
 def _train_batches(split: cifar10.Split, global_batch: int, epoch: int,
@@ -117,9 +119,16 @@ class Trainer:
     ``metrics_ring``: the capacity of the device metric ring the windows
     write (None: on, at 64; 0: off, the window's losses are fetched
     instead).  ``profile_phases``: the per-step path with the forward
-    timed apart (the ring is then off)."""
+    timed apart (the ring is then off).
+
+    ``model``: any name of the zoo (``models.get_model``).  ``precision``:
+    ``"f32"`` (reference parity, the default) or ``"bf16"`` (mixed
+    precision: bf16 activations, convolutions and matmuls; f32 master
+    weights, gradients, optimizer and comm state, BN statistics and
+    loss)."""
 
     def __init__(self, model: str = "vgg11", strategy: str = "allreduce", *,
+                 precision: str = "f32",
                  compress_rank: Optional[int] = None,
                  global_batch: int = GLOBAL_BATCH, data_dir: str = "./data",
                  device: Optional[Union[str, torch.device]] = None,
@@ -130,6 +139,11 @@ class Trainer:
                  profile_phases: bool = False,
                  metrics_ring: Optional[int] = None,
                  log: Callable[[str], None] = print):
+        if precision not in PRECISIONS:
+            raise ValueError(f"precision must be one of "
+                             f"{sorted(PRECISIONS)}, got {precision!r}")
+        self.precision = precision
+        self.compute_dtype = PRECISIONS[precision]
         strat = get_strategy(strategy, **({} if compress_rank is None
                                           else {"compress_rank":
                                                 compress_rank}))
@@ -178,11 +192,12 @@ class Trainer:
         net = model_zoo.get_model(model, seed).to(
             self.device, memory_format=torch.channels_last)
         self.state = steplib.init_train_state(net, strat)
+        dtype = self.compute_dtype
         self.train_step = steplib.make_train_step(
             net, strat, sgd_cfg, augment=augment, group=self.group,
-            seed=seed)
-        self.forward_step = steplib.make_forward_step(net, self.group)
-        self.evaluate = steplib.make_eval_window(net, self.group)
+            seed=seed, compute_dtype=dtype)
+        self.forward_step = steplib.make_forward_step(net, self.group, dtype)
+        self.evaluate = steplib.make_eval_window(net, self.group, dtype)
         self.host_round_trips = 0
         self._staged_train = None       # (cache key, StagedEpoch)
         self._staged_eval = None
@@ -280,7 +295,8 @@ class Trainer:
             staged = self._staged_buffers()
             self._fwd_window = steplib.FwdWindow(
                 self.state.model, staged.images, staged.labels,
-                augment=self.augment, group=self.group, seed=self.seed)
+                augment=self.augment, group=self.group, seed=self.seed,
+                compute_dtype=self.compute_dtype)
         return self._fwd_window
 
     def _fetch(self, t: torch.Tensor) -> np.ndarray:

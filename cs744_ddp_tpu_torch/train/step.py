@@ -19,6 +19,12 @@ is updated in place: the parameters and momentum (``ops/sgd.py``), the BN
 running statistics (``copy_`` in the modules), a compressed strategy's
 residuals and Q factors (``copy_comm``).
 
+Mixed precision (``compute_dtype=torch.bfloat16``, the reference's
+``compute_dtype``): every program casts its input after the transform,
+the modules compute in the activation dtype from f32 master weights, and
+what the step carries stays f32 — so nothing new is carried and a graph's
+snapshot and restore are the same as in f32.
+
 Training-mode BN uses the rank's own batch statistics.  The ``single``
 strategy is the plain step with no process group, as the reference's
 Part 1 has no ``torch.distributed`` code.
@@ -117,13 +123,16 @@ def copy_comm(comm: Dict, new_comm: Dict) -> None:
 
 def prepare(images_u8: torch.Tensor, augment: bool, key: int,
             epoch: torch.Tensor, idx: torch.Tensor,
-            stats: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
-    """uint8 [B,32,32,3] -> the model's f32 input [B,3,32,32] (channels_last):
+            stats: Tuple[torch.Tensor, torch.Tensor],
+            compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """uint8 [B,32,32,3] -> the model's input [B,3,32,32] (channels_last):
     the counter-keyed crop/flip of batch ``idx`` of ``epoch`` + normalize
-    when ``augment``, else normalize only."""
+    when ``augment``, else normalize only, in f32; then cast to
+    ``compute_dtype`` (None: stays f32), as the reference's
+    ``fold_and_prepare`` casts after the transform."""
     x = aug.augment(images_u8, key, epoch, idx, stats) if augment \
         else aug.normalize(images_u8, stats)
-    return aug.to_model_input(x)
+    return aug.cast(aug.to_model_input(x), compute_dtype)
 
 
 def _bn_statistics(model: nn.Module) -> List[torch.Tensor]:
@@ -162,10 +171,13 @@ def _stream_key(seed: int, group: Optional[Group]) -> int:
 def make_step_body(model: nn.Module, strategy=strategies.local,
                    cfg: sgd.SGDConfig = sgd.SGDConfig(), *,
                    augment: bool = True, group: Optional[Group] = None,
-                   seed: int = 0) -> Callable:
+                   seed: int = 0,
+                   compute_dtype: Optional[torch.dtype] = None) -> Callable:
     """body(state, images_u8, labels, epoch, idx) -> (loss, grads): one
     train step on this rank's rows, ``epoch`` and ``idx`` int64 0-d
     tensors on the model's device that key the augmentation draws.
+    ``compute_dtype`` (None: f32) is the activations' dtype; parameters,
+    gradients, momentum, comm state, BN statistics and the loss stay f32.
 
     It updates the parameters, BN running statistics, momentum and comm
     state in place and returns the loss (meaned over the ranks, a 0-d
@@ -188,7 +200,8 @@ def make_step_body(model: nn.Module, strategy=strategies.local,
 
     def body(state: TrainState, images_u8: torch.Tensor,
              labels: torch.Tensor, epoch: torch.Tensor, idx: torch.Tensor):
-        x = prepare(images_u8, augment, key, epoch, idx, norm)
+        x = prepare(images_u8, augment, key, epoch, idx, norm,
+                    compute_dtype)
         model.train()
         loss = cross_entropy(model(x), labels)
         if single:
@@ -218,14 +231,16 @@ def make_step_body(model: nn.Module, strategy=strategies.local,
 def make_train_step(model: nn.Module, strategy=strategies.local,
                     cfg: sgd.SGDConfig = sgd.SGDConfig(), *,
                     augment: bool = True,
-                    group: Optional[Group] = None, seed: int = 0
+                    group: Optional[Group] = None, seed: int = 0,
+                    compute_dtype: Optional[torch.dtype] = None
                     ) -> Callable:
     """step(state, images_u8 [B,32,32,3], labels [B], epoch=0, idx=0) ->
     loss: ``make_step_body`` on a batch the caller hands over, ``epoch``
     and ``idx`` (ints or int64 0-d device tensors) keying the augmentation.
     ``step.body`` is the body, for a window that shares it."""
     body = make_step_body(model, strategy, cfg, augment=augment,
-                          group=group, seed=seed)
+                          group=group, seed=seed,
+                          compute_dtype=compute_dtype)
 
     def step(state: TrainState, images_u8: torch.Tensor,
              labels: torch.Tensor, epoch: Index = 0, idx: Index = 0
@@ -239,7 +254,8 @@ def make_train_step(model: nn.Module, strategy=strategies.local,
 
 
 def make_forward_body(model: nn.Module, *, augment: bool = True,
-                      group: Optional[Group] = None, seed: int = 0
+                      group: Optional[Group] = None, seed: int = 0,
+                      compute_dtype: Optional[torch.dtype] = None
                       ) -> Callable:
     """fwd(images_u8, labels, epoch, idx) -> loss: the train step's input
     transform, forward in train mode (batch statistics) and loss, meaned
@@ -256,7 +272,8 @@ def make_forward_body(model: nn.Module, *, augment: bool = True,
             epoch: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         model.train()
         loss = cross_entropy(
-            model(prepare(images_u8, augment, key, epoch, idx, norm)),
+            model(prepare(images_u8, augment, key, epoch, idx, norm,
+                          compute_dtype)),
             labels)
         if group is not None and group.world > 1:
             loss = loss.reshape(1)
@@ -267,13 +284,15 @@ def make_forward_body(model: nn.Module, *, augment: bool = True,
     return fwd
 
 
-def make_forward_step(model: nn.Module, group: Optional[Group] = None
+def make_forward_step(model: nn.Module, group: Optional[Group] = None,
+                      compute_dtype: Optional[torch.dtype] = None
                       ) -> Callable:
     """fwd(images_u8, labels) -> loss: the reference's per-step
     forward-only program of ``profile_phases`` (normalize, forward in train
     mode, loss meaned over the ranks), BN running statistics left as they
     were."""
-    body = make_forward_body(model, augment=False, group=group)
+    body = make_forward_body(model, augment=False, group=group,
+                             compute_dtype=compute_dtype)
     buffers = list(model.buffers())
 
     def fwd(images_u8: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -476,9 +495,10 @@ class FwdWindow(_Window):
 
     def __init__(self, model: nn.Module, images: torch.Tensor,
                  labels: torch.Tensor, *, augment: bool = True,
-                 group: Optional[Group] = None, seed: int = 0):
+                 group: Optional[Group] = None, seed: int = 0,
+                 compute_dtype: Optional[torch.dtype] = None):
         self.body = make_forward_body(model, augment=augment, group=group,
-                                      seed=seed)
+                                      seed=seed, compute_dtype=compute_dtype)
         self.buffers = list(model.buffers())
         super().__init__(images, labels, None)
 
@@ -496,13 +516,16 @@ class FwdWindow(_Window):
         return self.losses[:w]
 
 
-def make_eval_window(model: nn.Module, group: Optional[Group] = None
+def make_eval_window(model: nn.Module, group: Optional[Group] = None,
+                     compute_dtype: Optional[torch.dtype] = None
                      ) -> Callable:
     """evaluate(images [T,b,32,32,3] uint8, labels [T,b]) -> (loss_sum,
     correct): the reference's ``make_eval_window``, the whole staged test
-    set with running statistics in BN, over the examples with label >= 0
-    (label -1 marks padding), accumulated on the device and summed over
-    the ranks by ONE all-reduce at the end.  Nothing is synchronised."""
+    set with running statistics in BN, the normalized input cast to
+    ``compute_dtype``, over the examples with label >= 0 (label -1 marks
+    padding; counts from f32 logits), accumulated on the device and summed
+    over the ranks by ONE all-reduce at the end.  Nothing is
+    synchronised."""
     norm = aug.channel_stats(_device_of(model))
 
     @torch.no_grad()
@@ -512,7 +535,8 @@ def make_eval_window(model: nn.Module, group: Optional[Group] = None
         loss_sum = torch.zeros((), dtype=torch.float32, device=images.device)
         correct = torch.zeros((), dtype=torch.int64, device=images.device)
         for t in range(images.shape[0]):
-            logits = model(aug.to_model_input(aug.normalize(images[t], norm)))
+            logits = model(aug.cast(aug.to_model_input(
+                aug.normalize(images[t], norm)), compute_dtype))
             ls, c = masked_eval_counts(logits, labels[t])
             loss_sum += ls
             correct += c

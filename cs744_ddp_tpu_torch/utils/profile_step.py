@@ -1,8 +1,11 @@
-"""Where the device time of the VGG-11 train step goes, on one GPU.
+"""Where the device time of a train step goes, on one GPU.
 
     python -m cs744_ddp_tpu_torch.utils.profile_step [--strategy NAME]
+        [--model vgg11|vgg13|vgg16|vgg19|resnet18|resnet34]
+        [--precision f32|bf16]
 
-Runs the Trainer's step with the given strategy (``single`` by default; any
+Runs the Trainer's step of ``--model`` (VGG-11 by default) in
+``--precision`` with the given strategy (``single`` by default; any
 other runs at world 1, over NCCL in a world-1 group, so its collectives are
 in the trace), batch 256, augmentation on, along both of the Trainer's
 paths: the per-step path (one eager step per batch, its loss fetched after
@@ -11,7 +14,8 @@ step, one fetch).  Each is warmed up, then ``STEPS`` steady steps are traced
 with ``torch.profiler``, and it prints: the wall time per step, the
 device's busy share of it (union of kernel intervals over wall time),
 device time per step by kernel family, each of the port's own kernels, and
-the top kernels.
+the top kernels.  A model with no pool block (the ResNets) runs no bnpool
+kernel: its bnpool family is reported absent, not as zero time.
 """
 
 from __future__ import annotations
@@ -24,17 +28,21 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from ..models.layers import BnReluPool2d
 from ..train import loop
 
 WARMUP = 25
 STEPS = 10
-# Kernel families by name fragment, first match wins.
+# Kernel families by name fragment, first match wins: cuDNN's own batch
+# norm and layout kernels are named ``cudnn::...`` too, so they are
+# matched before the convolutions.
 FAMILIES = (
     ("bnpool kernels", ("sums_kernel", "dx_kernel")),
     ("collectives", ("nccl",)),
-    ("convolution", ("conv", "cudnn", "implicit", "gemm", "winograd", "xmma",
-                     "cutlass", "wgrad", "dgrad", "sm90", "sm80")),
     ("batch norm", ("batch_norm", "batchnorm", "welford", "bn_")),
+    ("layout transpose", ("nhwctonchw", "nchwtonhwc")),
+    ("convolution", ("conv", "cudnn", "implicit", "gemm", "winograd", "xmma",
+                     "cutlass", "wgrad", "dgrad", "sm90", "sm80", "fft")),
     ("max pool", ("max_pool", "maxpool")),
     ("reduction", ("reduce",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
@@ -65,10 +73,12 @@ def busy_us(intervals) -> float:
     return total
 
 
-def report(label: str, run, steps: int) -> None:
+def report(label: str, run, steps: int, pool_blocks: bool = True) -> None:
     """Trace ``run()``, which trains ``steps`` steps and fetches, and print
     the wall time per step, the device's busy share, device time per step
-    by kernel family, the port's own kernels and the top kernels."""
+    by kernel family, the port's own kernels and the top kernels.
+    ``pool_blocks``: whether the model has the fused op's blocks (else
+    the bnpool family is reported absent)."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -97,6 +107,9 @@ def report(label: str, run, steps: int) -> None:
     for fam, us in sorted(by_family.items(), key=lambda kv: -kv[1]):
         print(f"[profile] {label}: family {fam}: {us / steps / 1e3:.4f} "
               f"ms/step ({100 * us / busy:.1f}% of device time)")
+    if not pool_blocks:
+        print(f"[profile] {label}: family bnpool kernels: absent (the "
+              f"model has no pool block)")
     for name, (us, n) in sorted(by_name.items()):
         if family(name) == "bnpool kernels":
             print(f"[profile] {label}: bnpool kernel {us / steps / 1e3:.4f} "
@@ -111,9 +124,17 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--strategy", default="single",
                         choices=loop.STRATEGIES)
+    parser.add_argument("--model", default="vgg11",
+                        help="any name of the model zoo")
+    parser.add_argument("--precision", default="f32",
+                        choices=sorted(loop.PRECISIONS))
     args = parser.parse_args(argv)
-    trainer = loop.Trainer("vgg11", args.strategy, log=lambda s: None)
-    card = torch.cuda.get_device_name(0)
+    trainer = loop.Trainer(args.model, args.strategy,
+                           precision=args.precision, log=lambda s: None)
+    pools = any(isinstance(m, BnReluPool2d)
+                for m in trainer.state.model.modules())
+    head = (f"{torch.cuda.get_device_name(0)}, {args.model}, "
+            f"{args.precision}")
     batches = enumerate(loop._train_batches(
         trainer.train_split, trainer.global_batch, 0, trainer.seed))
 
@@ -128,13 +149,13 @@ def main(argv=None) -> None:
 
     for _ in range(WARMUP):
         step()
-    report(f"{card}, {args.strategy}, per-step path", steps, STEPS)
+    report(f"{head}, {args.strategy}, per-step path", steps, STEPS, pools)
 
     window = trainer.train_window()
     for start in range(0, WARMUP, STEPS):       # capture, then warm
         window(0, start, STEPS).cpu()
-    report(f"{card}, {args.strategy}, windowed path (graph replays)",
-           lambda: window(0, WARMUP, STEPS).cpu(), STEPS)
+    report(f"{head}, {args.strategy}, windowed path (graph replays)",
+           lambda: window(0, WARMUP, STEPS).cpu(), STEPS, pools)
 
 
 if __name__ == "__main__":

@@ -34,15 +34,13 @@ from torch.profiler import ProfilerActivity, profile, schedule
 from ..ops import bnpool
 from ..train import loop
 
-KERNELS = (("bnpool_sums", "sums_kernel"), ("bnpool_dx", "dx_kernel"))
 PAD_S = 0.25
 
 
 def traced(prof) -> dict:
     names = Counter(e.name for e in prof.events()
                     if e.device_type == DeviceType.CUDA)
-    seen = {k: sum(n for name, n in names.items() if frag in name)
-            for k, frag in KERNELS}
+    seen = bnpool.profiled_runs(names)
     seen["device events"] = sum(names.values())
     return seen
 

@@ -202,7 +202,7 @@ def test_wrapper_counts_only_kernel_launches_and_checks_inputs():
     bnpool.reset_launch_counts()
     dx, s_dy, s_dyx = bnpool.bnpool_backward(xhat, dp, g, b, inv)
     # CPU tensors take the plain version: no launch is counted.
-    assert (bnpool.bnpool_sums.launches, bnpool.bnpool_dx.launches) == (0, 0)
+    assert bnpool.launch_counts() == dict.fromkeys(bnpool.KERNELS, 0)
     ref = bnpool.bnpool_backward_reference(xhat, dp, g, b, inv)
     for got, want in zip((dx, s_dy, s_dyx), ref):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
@@ -210,6 +210,62 @@ def test_wrapper_counts_only_kernel_launches_and_checks_inputs():
         bnpool.bnpool_sums(xhat, dp[:, :, :1], g, b)
     with pytest.raises(TypeError, match="share a dtype"):
         bnpool.bnpool_sums(xhat, dp.to(torch.bfloat16), g, b)
+
+
+def test_profiled_runs_count_each_kernel_variant():
+    """A trace's device events by name -> runs of each kernel variant: the
+    template argument tells the dtype, other kernels are not counted."""
+    names = {"void sums_kernel<float>(float const*, float const*)": 5,
+             "void dx_kernel<__nv_bfloat16>(__nv_bfloat16 const*)": 3,
+             "void sums_kernel<__nv_bfloat16>(__nv_bfloat16 const*)": 2,
+             "sm90_xmma_fprop_implicit_gemm_bf16": 7}
+    assert bnpool.profiled_runs(names) == {
+        "bnpool_sums": 5, "bnpool_dx": 0, "bnpool_sums_bf16": 2,
+        "bnpool_dx_bf16": 3}
+    assert [bnpool.kernel_name(k, d) for d in (torch.float32, torch.bfloat16)
+            for k in ("bnpool_sums", "bnpool_dx")] == list(bnpool.KERNELS)
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_chip_smoke_bf16_dx_check_catches_wrong_dx():
+    """chip_smoke.py's bf16 dx check on CPU tensors: the plain version
+    passes against itself; dx without the mean-correction terms fails the
+    bound, and one window's dx routed to another element (fewer elements
+    than the flips allowed) fails as no near-tie."""
+    smoke = _chip_smoke()
+    x, gamma, beta, wts = _inputs((16, 16, 16, 16), 6)
+    xhat, dp = _nchw(x, torch.bfloat16), _nchw(wts, torch.bfloat16)
+    g, b = torch.from_numpy(gamma), torch.from_numpy(beta)
+    inv = torch.full((16,), 0.5)
+    sums = bnpool.bnpool_sums_reference(xhat, dp, g, b)
+    dx_ref = bnpool.bnpool_dx_reference(xhat, dp, g, b, inv, sums).float()
+    err, flips, _ = smoke.check_bf16_dx(bnpool, xhat, g, b, dx_ref.clone(),
+                                        dx_ref, "same")
+    assert (err, flips) == (0.0, 0)
+    no_mean = bnpool.bnpool_dx_reference(xhat, dp, g, b, inv,
+                                         torch.zeros_like(sums)).float()
+    with pytest.raises(smoke.SmokeFailure, match="outside rtol"):
+        smoke.check_bf16_dx(bnpool, xhat, g, b, no_mean, dx_ref, "no mean")
+    # Swap the two elements of the first window whose two largest values
+    # differ by more than a near-tie.
+    y = (xhat.float() * g.view(1, -1, 1, 1) + b.view(1, -1, 1, 1)).to(
+        torch.bfloat16).float().clamp_min(0)
+    top = torch.stack(bnpool._quadrants(y)).sort(dim=0).values
+    n, c, i, j = (top[-1] - top[-2] > 0.5).nonzero()[0].tolist()
+    swapped = dx_ref.clone()
+    win = swapped[n, c, 2 * i:2 * i + 2, 2 * j:2 * j + 2]
+    win.copy_(win.flip(0).flip(1))
+    with pytest.raises(smoke.SmokeFailure, match="no near-tie"):
+        smoke.check_bf16_dx(bnpool, xhat, g, b, swapped, dx_ref, "swap")
 
 
 # [N, C, H, W]: the five VGG-11 pool blocks at batch 256, then ragged ones
@@ -282,8 +338,12 @@ def test_cuda_kernels_match_plain_version(dtype, shape):
     bnpool.reset_launch_counts()
     got = bnpool.bnpool_backward(xhat, dp, g, b, inv)
     torch.cuda.synchronize()
-    assert (bnpool.bnpool_sums.launches, bnpool.bnpool_dx.launches) == (1, 1)
-    assert bnpool.executed_counts() == {"bnpool_sums": 1, "bnpool_dx": 1}
+    # One launch and one run of each kernel, counted as the dtype's variant.
+    want = dict.fromkeys(bnpool.KERNELS, 0)
+    want.update({bnpool.kernel_name(k, dtype): 1
+                 for k in ("bnpool_sums", "bnpool_dx")})
+    assert bnpool.launch_counts() == want
+    assert bnpool.executed_counts() == want
     want = bnpool.bnpool_backward_reference(xhat, dp, g, b, inv)
     tol = dict(rtol=5e-4, atol=1e-4) if dtype == torch.float32 \
         else dict(rtol=2e-2, atol=2e-2)

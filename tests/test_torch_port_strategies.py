@@ -44,6 +44,7 @@ from cs744_ddp_tpu.parallel import strategies as jstrategies
 from cs744_ddp_tpu.parallel.mesh import DATA_AXIS
 from cs744_ddp_tpu.train.step import _SHARD_MAP_KW
 from cs744_ddp_tpu_torch.models import convert, get_model
+from cs744_ddp_tpu_torch.models import vgg as tvgg
 from cs744_ddp_tpu_torch.parallel import bucketing, get_strategy, strategies
 
 import torch_dist_worker as worker
@@ -73,6 +74,11 @@ def narrow_tree(rng, lead=()):
             "fc1": {"w": n(512, 10), "b": n(10)}}
 
 
+# The narrow VGG's parameter names in the reference's leaf order, the
+# order of port_inputs' gradients and residuals.
+NAMES = list(convert.params_from_jax(narrow_tree(np.random.default_rng(0))))
+
+
 def jax_run(tier, world, grads, comm):
     strat = jstrategies.get_strategy(tier)
     mesh = make_mesh(world)
@@ -96,7 +102,7 @@ def port_inputs(grads, comm, world, path):
     arrays = {}
     for r in range(world):
         g = convert.params_from_jax(jax.tree.map(lambda a: a[r], grads))
-        c = convert.comm_from_jax(comm, r)
+        c = convert.comm_from_jax(comm, r, list(g))
         for n, t in g.items():
             arrays[f"g{r}/{n}"] = t.numpy()
         for n, t in zip(g, c["residual"]):
@@ -213,13 +219,12 @@ def test_tier_matches_reference_on_the_same_gradients(runs, world, tier):
         return
     per_rank = []
     for npz in port[world]:
-        names = convert.param_names(5)
-        c = {"residual": [npz[f"{tier}/res/{n}"] for n in names]}
+        c = {"residual": [npz[f"{tier}/res/{n}"] for n in NAMES]}
         if tier == "powersgd":
             c["q"] = {k[len(f"{tier}/q/"):]: npz[k] for k in npz.files
                       if k.startswith(f"{tier}/q/")}
         per_rank.append(c)
-    got_comm = convert.comm_to_jax(per_rank)
+    got_comm = convert.comm_to_jax(per_rank, NAMES)
     for g, w, lr in zip(jax.tree.leaves(got_comm["residual"]),
                         jax.tree.leaves(want_comm["residual"]),
                         jax.tree.leaves(low)):
@@ -239,19 +244,27 @@ def test_comm_state_round_trips_through_the_reference_layout():
     comm = {"residual": narrow_tree(rng, (3,)),
             "q": {f"{i:03d}": rng.standard_normal((3, 9, 4)).astype(
                 np.float32) for i in (11, 13, 21)}}
-    back = convert.comm_to_jax([convert.comm_from_jax(comm, r)
-                                for r in range(3)])
+    # The narrow VGG's registration order (blocks.i.conv, blocks.i.bn, ...,
+    # fc1), which is not the reference's leaf order (every bn, every conv).
+    tvgg.CFG["VGGT"] = worker.NARROW_VGG
+    registered = [n for n, _ in tvgg.VGG("VGGT").named_parameters()]
+    assert registered != NAMES and sorted(registered) == sorted(NAMES)
+    assert convert.leaf_order(registered) == NAMES
+    per_rank = [convert.comm_from_jax(comm, r, registered) for r in range(3)]
+    back = convert.comm_to_jax(per_rank, registered)
     assert jax.tree.structure(back) == jax.tree.structure(comm)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(comm)):
         np.testing.assert_array_equal(a, b)
     # Reference leaves 11, 13, 21: conv.0.w, conv.1.w, fc1.w.
-    port = convert.comm_from_jax(comm, 1)
-    names = convert.jax_leaf_names(5)
-    assert list(port["q"]) == sorted(
-        (names[i] for i in (11, 13, 21)),
-        key=convert.param_names(5).index)
-    np.testing.assert_array_equal(port["q"][names[11]].numpy(),
+    port = per_rank[1]
+    assert list(port["q"]) == [NAMES[i] for i in (11, 13, 21)] == \
+        ["blocks.0.conv.weight", "blocks.1.conv.weight", "fc1.weight"]
+    np.testing.assert_array_equal(port["q"][NAMES[11]].numpy(),
                                   comm["q"]["011"][1])
+    np.testing.assert_array_equal(
+        port["residual"][registered.index(NAMES[11])].numpy(),
+        convert.params_from_jax(jax.tree.map(
+            lambda a: a[1], comm["residual"]))[NAMES[11]].numpy())
 
 
 @pytest.mark.parametrize("bucket_bytes", [64, 4096, 100_000,

@@ -73,8 +73,8 @@ def test_get_model_is_seeded_and_rejects_unported():
     bound = 1 / np.sqrt(3 * 9)
     w = a.blocks[0].conv.weight.detach()
     assert float(w.abs().max()) <= bound and float(w.std()) > bound / 3
-    with pytest.raises(ValueError, match="not yet ported"):
-        get_model("resnet18")
+    with pytest.raises(ValueError, match="unknown model 'resnet50'"):
+        get_model("resnet50")
 
 
 def test_train_and_eval_match_reference(jax_vgg):

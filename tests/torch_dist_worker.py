@@ -11,9 +11,10 @@ once for all of them):
   * ``strategies`` — every tier on this rank's gradients and comm state
     (an ``.npz`` in the port's layout); writes the mean gradients, the new
     residuals and Q factors;
-  * ``step``       — the Trainer's train step on a narrow VGG, its weights
-    and batches given, for each named strategy; writes the losses and the
-    final state_dict;
+  * ``step``       — the Trainer's train step on a narrow VGG (or the
+    zoo model ``model``), its weights, batches and, for a compressed tier,
+    its comm state (``comm``) given, for each named strategy; writes the
+    losses, the final state_dict and the final comm state;
   * ``counts``     — one train step of full-width VGG-11 per strategy;
     writes the step's collective counts, and for ``overlap`` how many
     buckets were launched when the gradient of ``blocks.0.conv.weight``
@@ -132,15 +133,25 @@ def task_step(task: dict, group, rank: int, outdir: str) -> None:
     vgg.CFG["VGGT"] = NARROW_VGG
     weights = np.load(task["weights"])
     batches = np.load(task["batches"])
+    comm = np.load(task["comm"]) if "comm" in task else None
     world, per = group.world, task["global_batch"] // group.world
     results = {}
     for name in task["strategies"]:
-        tr = Trainer("vggt", name, global_batch=task["global_batch"],
+        tr = Trainer(task.get("model", "vggt"), name,
+                     global_batch=task["global_batch"],
                      data_dir=ASSETS, device="cpu", augment=False,
                      sgd_cfg=SGDConfig(lr=task["lr"]), log=lambda s: None)
         assert (tr.world, tr.rank) == (world, rank)
         tr.state.model.load_state_dict(
             {k: torch.from_numpy(np.array(v)) for k, v in weights.items()})
+        names = [n for n, _ in tr.state.model.named_parameters()]
+        state_comm = tr.state.opt_state.comm
+        if comm is not None and state_comm is not None:
+            with torch.no_grad():
+                for n, r in zip(names, state_comm["residual"]):
+                    r.copy_(torch.from_numpy(comm[f"r{rank}/{n}"]))
+                for n, q in state_comm.get("q", {}).items():
+                    q.copy_(torch.from_numpy(comm[f"q{rank}/{n}"]))
         losses = []
         for s in range(task["steps"]):
             rows = slice(rank * per, (rank + 1) * per)
@@ -150,6 +161,11 @@ def task_step(task: dict, group, rank: int, outdir: str) -> None:
         results[f"{name}/losses"] = np.array(losses)
         for k, v in tr.state.model.state_dict().items():
             results[f"{name}/sd/{k}"] = v.contiguous().numpy()
+        if state_comm is not None:
+            for n, r in zip(names, state_comm["residual"]):
+                results[f"{name}/res/{n}"] = r.contiguous().numpy()
+            for n, q in state_comm.get("q", {}).items():
+                results[f"{name}/q/{n}"] = q.numpy()
     np.savez(os.path.join(outdir, f"step_r{rank}.npz"), **results)
 
 
