@@ -21,11 +21,15 @@ Phases, in order; any failure exits non-zero:
                stream beside an eager call, bitwise equal to the eager
                sums;
   3. time    — per shape: kernel time (median of CUDA-event timings, L2
-               flushed before each launch), its byte bound and the share of
-               it reached, the plain version's time, and the backward of the
-               unfused library chain (batch_norm -> relu -> max_pool2d) as a
-               reference point; in f32, then in bf16 (lines tagged
-               ``bf16``; the bound counts 2-byte xhat, dp and dx);
+               flushed before each launch), its device time alone (median
+               of the profiler's kernel records, each launch after the
+               flush and a read pass that leaves the L2 clean), its byte
+               bound and the share of it each time reaches, the plain
+               version's time, the backward of the unfused library chain
+               (batch_norm -> relu -> max_pool2d) as a reference point, and
+               a digest of dx's bytes (to compare two checkouts' kernels
+               bit for bit); in f32, then in bf16 (lines tagged ``bf16``;
+               the bound counts 2-byte xhat, dp and dx);
   4. train   — ``Trainer("vgg11", "single", global_batch=256)`` trains
                one whole augmented epoch on the synthetic split through its
                default windowed path (195 steps in 20-step windows, each
@@ -98,7 +102,10 @@ Phases, in order; any failure exits non-zero:
 ``--time-only`` runs phases 1 and 3 and stops.  ``--root DIR`` times the
 kernels of the checkout at DIR instead (for example the parent commit,
 unpacked with ``git archive``), so that two versions are compared in one
-run on one card.
+run on one card.  ``--tune-dx`` runs phase 1, then times the dx kernel at
+the five VGG-11 pool shapes in both dtypes over a range of partitions
+(threads a block x windows a thread, ``tune_dx``), checks that each gives
+the same dx bits, marks ``bnpool.dx_partition``'s choice, and stops.
 
 Without a CUDA device it exits with code 2 and prints no result.  It
 imports nothing of JAX and nothing of the JAX package.
@@ -126,10 +133,19 @@ F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 # f32 operations per element of xhat, counted from the kernels' source.
 # Sums, per window: mul, add, max per element (12), the window max (3),
 # the first maximal element (3 compares, 3 selects), the gate and two sums
-# (4): 25.  dx: the routing per element plus the dx formula.
+# (4): 25.  dx (window_dx), per window: mul, add, max per element (12), the
+# window max (3), the first-maximum compare, the gate and its select per
+# element (12), the formula's three products and two differences per
+# element (20): 47, 11.75 per element.
 SUMS_OPS_PER_ELEM = 7
 DX_OPS_PER_ELEM = 12
 BATCH = 256
+CLEAN_REPS = 20
+# The kernels' names in a profiler trace, by wrapper.
+KERNEL_FRAGMENT = {"bnpool_sums": "sums_kernel", "bnpool_dx": "dx_kernel"}
+# Partitions tune_dx tries: threads a block x windows a thread.
+TUNE_THREADS = (64, 128, 256)
+TUNE_WINDOWS = (1, 2, 4, 8)
 # [N, C, H, W] of the five pool blocks of VGG-11 at batch 256 (s0..s4).
 SHAPES = [(BATCH, 64, 32, 32), (BATCH, 128, 16, 16), (BATCH, 256, 8, 8),
           (BATCH, 512, 4, 4), (BATCH, 512, 2, 2)]
@@ -220,6 +236,41 @@ def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, fragment, flush, evict) -> float:
+    """Median device duration in ms of the kernel whose name holds
+    ``fragment``, over CLEAN_REPS calls of ``fn`` (each launching it once),
+    from torch.profiler's kernel records: no host time is inside.  Before
+    each call ``flush`` is zeroed and ``evict`` (larger than the L2) is
+    read, so the L2 holds no dirty line and no line of the kernel's
+    inputs.  The trace holds PROFILE_PAD_S of idle time on each side, as
+    ``window_profile``'s does."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        for _ in range(CLEAN_REPS):
+            flush.zero_()
+            evict.sum()
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and fragment in e.name]
+    check(len(times) == CLEAN_REPS, f"the profiler saw {len(times)} "
+          f"{fragment} runs of {CLEAN_REPS}")
+    return statistics.median(times) / 1e3
+
+
+def digest(t: torch.Tensor) -> str:
+    """The first 16 hex digits of the sha256 of ``t``'s bytes in NHWC
+    order."""
+    import hashlib
+    raw = t.permute(0, 2, 3, 1).contiguous().cpu().view(torch.uint8)
+    return hashlib.sha256(raw.numpy().tobytes()).hexdigest()[:16]
 
 
 def phase_build():
@@ -347,69 +398,186 @@ def chain_backward(x, gamma, beta, dp):
 
 
 def phase_time(card_line):
-    """Both dtypes' times: {dtype name: per-kernel totals}."""
+    """Both dtypes' times: {dtype name: per-kernel totals}.  Every CUDA-event
+    timing (kernels, plain versions, the library chain) comes before the
+    first profiler session (``device_ms``): once one has run, each launch
+    costs the host more, and the event timings hold host time."""
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-    return {name: time_dtype(card_line, dtype, flush)
-            for name, dtype in (("f32", torch.float32),
-                                ("bf16", torch.bfloat16))}
+    evict = torch.ones(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    rows = {name: event_times(dtype, flush) for name, dtype in dtypes.items()}
+    for name, dtype in dtypes.items():
+        add_device_times(rows[name], dtype, flush, evict)
+    return {name: report_times(card_line, dtype, rows[name])
+            for name, dtype in dtypes.items()}
 
 
-def time_dtype(card_line, dtype, flush):
-    """Phase 3 at one dtype: the kernels, their plain versions and the
-    unfused library chain's backward at the five VGG-11 pool shapes; the
-    byte bound counts xhat, dp and dx at the dtype's size.  The f32 lines
-    carry no dtype tag, the bf16 lines a ``bf16`` one."""
+def time_work(bnpool, xhat, dp, gamma, beta, inv, sums):
+    """Each kernel's call, its plain version's, and the bytes and f32
+    operations its bound counts (xhat, dp and dx at the dtype's size)."""
+    vec = gamma.nbytes + beta.nbytes
+    return {
+        "bnpool_sums": (
+            lambda: bnpool.bnpool_sums(xhat, dp, gamma, beta),
+            lambda: bnpool.bnpool_sums_reference(xhat, dp, gamma, beta),
+            xhat.nbytes + dp.nbytes + vec + sums.nbytes,
+            SUMS_OPS_PER_ELEM * xhat.numel()),
+        "bnpool_dx": (
+            lambda: bnpool.bnpool_dx(xhat, dp, gamma, beta, inv, sums),
+            lambda: bnpool.bnpool_dx_reference(xhat, dp, gamma, beta,
+                                               inv, sums),
+            2 * xhat.nbytes + dp.nbytes + vec + inv.nbytes + sums.nbytes,
+            DX_OPS_PER_ELEM * xhat.numel())}
+
+
+def event_times(dtype, flush):
+    """Phase 3's CUDA-event column at one dtype, per VGG-11 pool shape:
+    each kernel's time (``time_ms``), its plain version's, its bound, the
+    unfused library chain's backward, and the digest of dx."""
     from cs744_ddp_tpu_torch.ops import bnpool
-    tag = "" if dtype == torch.float32 else " bf16"
-    tot = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0.0, ops=0.0)
-           for k in ("bnpool_sums", "bnpool_dx")}
-    chain_total = 0.0
+    rows = []
     for k, shape in enumerate(SHAPES):
         x, xhat, dp, gamma, beta, inv = inputs(shape, dtype, k)
         sums = bnpool.bnpool_sums(xhat, dp, gamma, beta)
-        vec = gamma.nbytes + beta.nbytes
-        work = {
-            "bnpool_sums": (
-                lambda: bnpool.bnpool_sums(xhat, dp, gamma, beta),
-                lambda: bnpool.bnpool_sums_reference(xhat, dp, gamma, beta),
-                xhat.nbytes + dp.nbytes + vec + sums.nbytes,
-                SUMS_OPS_PER_ELEM * xhat.numel()),
-            "bnpool_dx": (
-                lambda: bnpool.bnpool_dx(xhat, dp, gamma, beta, inv, sums),
-                lambda: bnpool.bnpool_dx_reference(xhat, dp, gamma, beta,
-                                                   inv, sums),
-                2 * xhat.nbytes + dp.nbytes + vec + inv.nbytes + sums.nbytes,
-                DX_OPS_PER_ELEM * xhat.numel())}
-        parts = []
+        row = {"shape": shape}
+        work = time_work(bnpool, xhat, dp, gamma, beta, inv, sums)
         for name, (kernel, plain, nbytes, ops) in work.items():
-            ms = time_ms(kernel, 20, flush)
-            plain_ms = time_ms(plain, 5, flush)
-            bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-            t = tot[name]
-            t["ms"] += ms
-            t["plain_ms"] += plain_ms
-            t["bound_ms"] += bound_ms
-            t["bytes"] += nbytes
-            t["ops"] += ops
-            parts.append(f"{name} {ms:.4f} ms (bound {bound_ms:.4f}, "
-                         f"{100 * bound_ms / ms:.1f}% of it; plain "
-                         f"{plain_ms:.4f})")
-        chain_ms = time_ms(chain_backward(x, gamma, beta, dp), 10, flush)
-        chain_total += chain_ms
-        torch.cuda.synchronize()
-        print(f"[time]{tag} {shape}: " + "; ".join(parts)
-              + f"; unfused library chain backward {chain_ms:.4f} ms  "
-              f"[{card_line}]")
+            row[name] = dict(
+                ms=time_ms(kernel, 20, flush),
+                plain_ms=time_ms(plain, 5, flush),
+                bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                             ops / F32_OPS_PER_S) * 1e3,
+                bytes=nbytes, ops=ops)
+        row["chain_ms"] = time_ms(chain_backward(x, gamma, beta, dp), 10,
+                                  flush)
+        row["digest"] = digest(bnpool.bnpool_dx(xhat, dp, gamma, beta, inv,
+                                                sums))
+        rows.append(row)
+    return rows
+
+
+def add_device_times(rows, dtype, flush, evict):
+    """Phase 3's profiler column: each kernel's device time alone
+    (``device_ms``) at each row's shape, on the same inputs."""
+    from cs744_ddp_tpu_torch.ops import bnpool
+    for k, row in enumerate(rows):
+        _, xhat, dp, gamma, beta, inv = inputs(row["shape"], dtype, k)
+        sums = bnpool.bnpool_sums(xhat, dp, gamma, beta)
+        work = time_work(bnpool, xhat, dp, gamma, beta, inv, sums)
+        for name, (kernel, _, _, _) in work.items():
+            row[name]["device_ms"] = device_ms(kernel, KERNEL_FRAGMENT[name],
+                                               flush, evict)
+
+
+def report_times(card_line, dtype, rows):
+    """Phase 3's lines at one dtype (the f32 lines untagged, the bf16
+    lines tagged ``bf16``): per shape both timings and both shares of the
+    bound, the plain version, the library chain and dx's digest; then per
+    step (5 blocks).  Returns the per-kernel totals."""
+    tag = "" if dtype == torch.float32 else " bf16"
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bytes", "ops")
+    tot = {k: dict.fromkeys(keys, 0.0) for k in ("bnpool_sums", "bnpool_dx")}
+    chain_total = 0.0
+    for row in rows:
+        parts = []
+        for name, t in tot.items():
+            r = row[name]
+            for key in keys:
+                t[key] += r[key]
+            parts.append(
+                f"{name} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
+                f"{100 * r['bound_ms'] / r['ms']:.1f}% of it; device alone "
+                f"{r['device_ms']:.4f} ms, "
+                f"{100 * r['bound_ms'] / r['device_ms']:.1f}% of it; plain "
+                f"{r['plain_ms']:.4f})")
+        chain_total += row["chain_ms"]
+        print(f"[time]{tag} {row['shape']}: " + "; ".join(parts)
+              + f"; unfused library chain backward {row['chain_ms']:.4f} ms; "
+              f"dx sha256 {row['digest']}  [{card_line}]")
     for name, t in tot.items():
         print(f"[time]{tag} per step (5 blocks) {name}: {t['ms']:.4f} ms, "
               f"bound {t['bound_ms']:.4f} ms ({t['bytes'] / 1e6:.1f} MB, "
-              f"{100 * t['bound_ms'] / t['ms']:.1f}% of it), plain "
+              f"{100 * t['bound_ms'] / t['ms']:.1f}% of it); device alone "
+              f"{t['device_ms']:.4f} ms "
+              f"({100 * t['bound_ms'] / t['device_ms']:.1f}% of it); plain "
               f"{t['plain_ms']:.4f} ms  [{card_line}]")
     print(f"[time]{tag} per step (5 blocks) kernels together "
           f"{tot['bnpool_sums']['ms'] + tot['bnpool_dx']['ms']:.4f} ms vs "
           f"unfused library chain backward {chain_total:.4f} ms  "
           f"[{card_line}]")
     return tot
+
+
+def tune_dx(card_line):
+    """The dx kernel's device time alone (``device_ms``) at the five VGG-11
+    pool shapes in both dtypes, at each partition of TUNE_THREADS x
+    TUNE_WINDOWS and at ``bnpool.dx_partition``'s rule for each of
+    TUNE_WINDOWS windows a thread, launched through the C entry point
+    (these launches count nowhere); dx bitwise equal to the wrapper's at
+    every partition.  Per step, the rule at each count of windows a thread
+    beside its default (``bnpool._DX_WINDOWS``), which the wrapper
+    uses."""
+    from cs744_ddp_tpu_torch.ops import _build, bnpool
+    lib = _build.library("bnpool.cu")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    evict = torch.ones(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    ran = torch.zeros(1, dtype=torch.int64, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "" if dtype == torch.float32 else " bf16"
+        fn = getattr(lib, f"bnpool_dx_{bnpool._SUFFIX[dtype]}")
+        rule = dict.fromkeys(TUNE_WINDOWS + ("default",), 0.0)
+        for k, shape in enumerate(SHAPES):
+            _, xhat, dp, gamma, beta, inv = inputs(shape, dtype, k)
+            n, c, h, w = shape
+            item = xhat.element_size()
+            sums = bnpool.bnpool_sums(xhat, dp, gamma, beta)
+            want = bnpool.bnpool_dx(xhat, dp, gamma, beta, inv, sums)
+            dx = torch.empty_like(want)
+            vectors, windows = c // (16 // item), n * (h // 2) * (w // 2)
+
+            def launch(threads, blocks):
+                err = fn(xhat.data_ptr(), dp.data_ptr(), gamma.data_ptr(),
+                         beta.data_ptr(), inv.data_ptr(), sums.data_ptr(),
+                         dx.data_ptr(), n, h, w, c, threads, blocks,
+                         ran.data_ptr(),
+                         torch.cuda.current_stream().cuda_stream)
+                _build.check(lib, err, "bnpool_dx")
+
+            def per_thread(threads, blocks):
+                lanes = min(vectors, threads)
+                tiles = blocks // -(-vectors // lanes)
+                return -(-windows // (threads // lanes * tiles))
+
+            rules = {per: bnpool.dx_partition(n, c, h, w, item,
+                                              per_thread=per)
+                     for per in TUNE_WINDOWS}
+            rules["default"] = bnpool.dx_partition(n, c, h, w, item)
+            grids = set(rules.values()) | {
+                (t, -(-vectors // min(vectors, t)) * -(-windows // (
+                    t // min(vectors, t) * per)))
+                for t in TUNE_THREADS for per in TUNE_WINDOWS}
+            times = {}
+            for threads, blocks in sorted(grids):
+                dx.fill_(float("nan"))
+                times[threads, blocks] = device_ms(
+                    lambda: launch(threads, blocks), "dx_kernel", flush,
+                    evict)
+                check(torch.equal(dx, want), f"{shape}{tag}: dx at "
+                      f"{threads} threads x {blocks} blocks differs from "
+                      f"the wrapper's")
+            for per, grid in rules.items():
+                rule[per] += times[grid]
+            cells = [f"{t}x{b} ({per_thread(t, b)} a thread) {ms:.4f}"
+                     + ("*" if (t, b) == rules["default"] else "")
+                     for (t, b), ms in sorted(times.items())]
+            print(f"[tune]{tag} {shape} dx device ms by threads x blocks, "
+                  f"* = dx_partition, dx bitwise equal at each: "
+                  + "; ".join(cells) + f"  [{card_line}]")
+        print(f"[tune]{tag} per step (5 blocks), dx_partition's rule at "
+              f"each count of windows a thread and at its default (at most "
+              f"{bnpool._DX_WINDOWS[item]}): "
+              + "; ".join(f"{per}: {ms:.4f} ms" for per, ms in rule.items())
+              + f"  [{card_line}]")
 
 
 def steady(timers):
@@ -1010,6 +1178,9 @@ def main(argv=None) -> int:
                         help="build and time the kernels, nothing else")
     parser.add_argument("--root", help="time the kernels of the checkout at "
                         "this directory (implies --time-only)")
+    parser.add_argument("--tune-dx", action="store_true",
+                        help="build, time the dx kernel over partitions, "
+                        "nothing else")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; nothing was run",
@@ -1025,6 +1196,9 @@ def main(argv=None) -> int:
     phase_build()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.tune_dx:
+        tune_dx(card_line)
+        return 0
     if args.time_only or args.root:
         from cs744_ddp_tpu_torch.ops import bnpool
         print(f"[time] kernels of {os.path.dirname(bnpool.__file__)}")
@@ -1051,6 +1225,7 @@ def main(argv=None) -> int:
             "source": "cs744_ddp_tpu_torch/ops/csrc/bnpool.cu",
             "replaces": replaces[name], "launches": runs[name + suffix],
             "max_abs_err": errs[name + suffix], "ms": tot[name]["ms"],
+            "device_ms": tot[name]["device_ms"],
             "plain_ms": tot[name]["plain_ms"],
             "bound_ms": tot[name]["bound_ms"],
             "bound_by": ("bytes" if tot[name]["bytes"] / HBM_BYTES_PER_S
@@ -1060,8 +1235,9 @@ def main(argv=None) -> int:
             "launches_by_path": {p: n[name + suffix]
                                  for p, n in by_path.items()}}
             for name in ("bnpool_sums", "bnpool_dx")]
-    print(f"[done] {time.perf_counter() - t_all:.1f} s; ms, plain_ms and "
-          f"bound_ms are per training step (5 pool blocks); launches are "
+    print(f"[done] {time.perf_counter() - t_all:.1f} s; ms, device_ms, "
+          f"plain_ms and bound_ms are per training step (5 pool blocks; "
+          f"device_ms the device time alone, L2 clean); launches are "
           f"the kernels' runs counted on the device in the main path's run "
           f"(f32: single, one windowed epoch; bf16: vgg11 bf16 single, "
           f"{TRAIN_STEPS} windowed steps), wrapper_launches the wrappers' "

@@ -32,7 +32,7 @@ SIGNATURES = {
     "bnpool.cu": {
         **{f"bnpool_sums_{t}": [_P] * 6 + [_I] * 5 + [_P] * 2
            for t in ("f32", "bf16")},
-        **{f"bnpool_dx_{t}": [_P] * 7 + [_I] * 4 + [_P] * 2
+        **{f"bnpool_dx_{t}": [_P] * 7 + [_I] * 6 + [_P] * 2
            for t in ("f32", "bf16")},
     },
 }

@@ -27,7 +27,7 @@ physically), so C is the contiguous dimension for the kernels.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +44,20 @@ _SOURCE = "bnpool.cu"
 # four a streaming multiprocessor take 64 of an H100's 132.
 _SUM_THREADS = 256
 _SUM_BLOCKS = 256
+# The dx kernel: each thread on one 16-byte channel vector and up to
+# _DX_WINDOWS[itemsize] pool windows (more windows spread a thread's setup,
+# its channels' five values, over more work; a bf16 thread has twice the
+# channels and the arithmetic of an f32 one), fewer where the grid would
+# keep fewer than _DX_GRID_THREADS threads (248 a streaming multiprocessor
+# of an H100); blocks of at most _DX_THREADS threads, halved, down to
+# _DX_MIN_THREADS, until the grid has at least _DX_MIN_BLOCKS blocks, one
+# for each of an H100's 132 streaming multiprocessors.  Tuned on the card
+# (chip_smoke.py --tune-dx, PERF.md).
+_DX_WINDOWS = {4: 2, 2: 8}
+_DX_GRID_THREADS = 32768
+_DX_THREADS = 256
+_DX_MIN_THREADS = 32
+_DX_MIN_BLOCKS = 132
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # The kernels by variant, each wrapper at each dtype: the keys of
 # ``launch_counts`` and ``executed_counts``.
@@ -219,19 +233,52 @@ def sums_partition(n: int, c: int, h: int, w: int, itemsize: int) -> int:
     return min(-(-(n * (h // 2)) // rows_per_block), _SUM_BLOCKS)
 
 
-def _check_vector_path(xhat, tensors) -> None:
-    """What the sums kernel's 16-byte accesses need of CUDA inputs."""
+def dx_partition(n: int, c: int, h: int, w: int, itemsize: int,
+                 per_thread: Optional[int] = None) -> Tuple[int, int]:
+    """(threads, blocks) of the dx kernel for xhat [n, c, h, w] of
+    ``itemsize``-byte elements.  A block is L = min(C/V, threads) channel-
+    vector lanes (V = 16 / itemsize) by threads / L groups of windows, and
+    the grid is ceil(C/V / L) chunks of channel vectors by enough tiles for
+    ``per_thread`` windows a thread (by default the rule above;
+    chip_smoke.py --tune-dx times others).  It follows from the shape
+    alone, never from the card."""
+    vectors = c // (16 // itemsize)
+    windows = n * (h // 2) * (w // 2)
+    if per_thread is None:
+        per_thread = _DX_WINDOWS[itemsize]
+        while (per_thread > 1
+               and vectors * windows // per_thread < _DX_GRID_THREADS):
+            per_thread //= 2
+    threads = _DX_THREADS
+    while True:
+        lanes = min(vectors, threads)
+        groups = threads // lanes
+        blocks = -(-vectors // lanes) * -(-windows // (groups * per_thread))
+        if blocks >= _DX_MIN_BLOCKS or threads <= _DX_MIN_THREADS:
+            return threads, blocks
+        threads //= 2
+
+
+def _check_vector_path(kernel: str, xhat, tensors,
+                       max_vectors: Optional[int] = None) -> None:
+    """What ``kernel``'s 16-byte accesses need of the CUDA tensors it
+    reads and writes: C a whole number of 16-byte channel vectors (at most
+    ``max_vectors`` of them, where the kernel has such a limit) and every
+    tensor 16-byte aligned."""
     vec = 16 // xhat.element_size()
     c = xhat.shape[1]
-    if c % vec or c // vec > _SUM_THREADS:
-        raise ValueError(f"the sums kernel reads {vec} channels of "
-                         f"{xhat.dtype} per 16-byte vector: C must be a "
-                         f"multiple of {vec} and at most "
-                         f"{vec * _SUM_THREADS}, got {c}")
+    if c % vec:
+        raise ValueError(f"{kernel} reads {vec} channels of {xhat.dtype} "
+                         f"per 16-byte vector: C must be a multiple of "
+                         f"{vec}, got {c}")
+    if max_vectors is not None and c // vec > max_vectors:
+        raise ValueError(f"{kernel} takes at most {max_vectors} channel "
+                         f"vectors: C must be at most {vec * max_vectors} "
+                         f"in {xhat.dtype}, got {c}")
     for t in tensors:
         if t.data_ptr() % 16:
-            raise ValueError("the sums kernel needs 16-byte aligned "
-                             f"tensors; one starts at {t.data_ptr():#x}")
+            raise ValueError(f"{kernel} needs 16-byte aligned tensors; one "
+                             f"starts at {t.data_ptr():#x}")
 
 
 # Kernel runs counted on the device, by device index: int64, one for each
@@ -262,7 +309,9 @@ def bnpool_sums(xhat, dp, gamma, beta) -> torch.Tensor:
     _check_inputs(xhat, dp, (gamma, beta))
     if not xhat.is_cuda:
         return bnpool_sums_reference(xhat, dp, gamma, beta)
-    _check_vector_path(xhat, (xhat, dp, gamma, beta))
+    name = kernel_name("bnpool_sums", xhat.dtype)
+    _check_vector_path(name, xhat, (xhat, dp, gamma, beta),
+                       max_vectors=_SUM_THREADS)
     n, c, h, w = xhat.shape
     blocks = sums_partition(n, c, h, w, xhat.element_size())
     partial = torch.empty((blocks, 2, c), dtype=torch.float32,
@@ -270,7 +319,6 @@ def bnpool_sums(xhat, dp, gamma, beta) -> torch.Tensor:
     sums = torch.empty((2, c), dtype=torch.float32, device=xhat.device)
     lib = _build.library(_SOURCE)
     fn = getattr(lib, f"bnpool_sums_{_SUFFIX[xhat.dtype]}")
-    name = kernel_name("bnpool_sums", xhat.dtype)
     with torch.cuda.device(xhat.device):
         stream = torch.cuda.current_stream(xhat.device).cuda_stream
         err = fn(xhat.data_ptr(), dp.data_ptr(), gamma.data_ptr(),
@@ -288,17 +336,19 @@ def bnpool_dx(xhat, dp, gamma, beta, inv, sums) -> torch.Tensor:
     _check_inputs(xhat, dp, (gamma, beta, inv), sums)
     if not xhat.is_cuda:
         return bnpool_dx_reference(xhat, dp, gamma, beta, inv, sums)
+    name = kernel_name("bnpool_dx", xhat.dtype)
     n, c, h, w = xhat.shape
     dx = torch.empty_like(xhat, memory_format=torch.channels_last)
+    _check_vector_path(name, xhat, (xhat, dp, gamma, beta, inv, sums, dx))
+    threads, blocks = dx_partition(n, c, h, w, xhat.element_size())
     lib = _build.library(_SOURCE)
     fn = getattr(lib, f"bnpool_dx_{_SUFFIX[xhat.dtype]}")
-    name = kernel_name("bnpool_dx", xhat.dtype)
     with torch.cuda.device(xhat.device):
         stream = torch.cuda.current_stream(xhat.device).cuda_stream
         err = fn(xhat.data_ptr(), dp.data_ptr(), gamma.data_ptr(),
                  beta.data_ptr(), inv.data_ptr(), sums.data_ptr(),
-                 dx.data_ptr(), n, h, w, c, _executed(xhat.device, name),
-                 stream)
+                 dx.data_ptr(), n, h, w, c, threads, blocks,
+                 _executed(xhat.device, name), stream)
     _build.check(lib, err, "bnpool_dx")
     _LAUNCHES[name] += 1
     return dx

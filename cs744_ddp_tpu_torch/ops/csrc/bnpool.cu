@@ -52,7 +52,38 @@
 //   * A shared-memory ring fed by 1-D bulk copies (cp.async.bulk on an
 //     mbarrier) was also written and timed: it was slower at every VGG-11
 //     pool shape and was removed (PERF.md).
-// Phase 2 (bnpool_dx): one thread per (window, channel), scalar loads.
+// Phase 2 (bnpool_dx), one launch, no reduction across threads:
+//   * Bound: bytes (2.25 elements moved per element of xhat, about 12 f32
+//     operations).  What keeps a kernel from it on this card is
+//     instructions and loads in flight: with one thread per (window,
+//     channel), 2- or 4-byte accesses, divisions per element to find the
+//     window and five per-channel values reloaded per element, the bf16
+//     variant does the f32 variant's work for half the bytes.
+//   * A thread owns one 16-byte vector of channels (4 in f32, 8 in bf16)
+//     and `per` windows of its block's tile, G apart in (pooled row, wo)
+//     order, with G the block's groups of channel-vector lanes.  It issues
+//     the five 16-byte loads (four of xhat, one of dP) of kDxWindows
+//     windows before their arithmetic and writes four 16-byte stores a
+//     window.  In a warp each quadrant's load covers whole 128-byte lines.
+//   * The loads are evict-first (xhat and dP are read for the last time):
+//     in the step, the sums kernel has just read the same tensors, and
+//     lines that dx brings in then give way before the ones it has yet to
+//     read.  The stores are plain: the convolution backward reads dx next.
+//   * gamma, beta, scale = gamma*inv/n and the two sums of its vector are
+//     loaded once into registers; (row, wo) advances by adds, so the only
+//     division of a thread is its first window's row.
+//   * The grid comes from the shape alone (ops/bnpool.py::dx_partition):
+//     up to 2 (f32) or 8 (bf16) windows a thread, fewer at the small
+//     shapes, in blocks of up to 256 threads, smaller where that leaves
+//     fewer blocks than the card's 132 SMs.  The launch derives the lanes,
+//     groups and tiles from (threads, blocks); any partition gives the
+//     same dx.
+//   * The per-element arithmetic keeps the scalar kernel's operations and
+//     their order, so dx keeps its bits (chip_smoke.py prints a digest of
+//     dx to compare two checkouts).  No shared memory: nothing is reused.
+//   * Tried and slower (PERF.md): a 128- or 168-register cap (the bf16
+//     variant takes 207, one 256-thread block an SM), one window's loads
+//     in flight instead of two.
 //
 // Each kernel adds one to a device counter (`executed`, a u64 of the
 // wrapper's) when it runs: thread 0 of block 0, one atomic a launch.  A
@@ -70,7 +101,8 @@ constexpr int kSumThreads = 256;
 constexpr int kFinalUnroll = 4;   // partials in flight per finishing thread
 constexpr int kSumMinBlocks = 4;  // resident sums blocks per SM to aim for
 constexpr int kFinishers = 32;    // sums blocks that add up the partials
-constexpr int kDxThreads = 256;
+constexpr int kDxMaxThreads = 256;
+constexpr int kDxWindows = 2;     // windows a dx thread loads, then computes
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) {
@@ -100,6 +132,10 @@ template <> struct Vec<float> {
     f[2] = __uint_as_float(u.z);
     f[3] = __uint_as_float(u.w);
   }
+  __device__ __forceinline__ static uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
 };
 template <> struct Vec<__nv_bfloat16> {
   static constexpr int kN = 8;
@@ -112,61 +148,26 @@ template <> struct Vec<__nv_bfloat16> {
       f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
   }
+  // Rounded to nearest even, as from_f32.
+  __device__ __forceinline__ static uint4 pack(const float* f) {
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = __bfloat16_as_ushort(__float2bfloat16_rn(f[2 * i])) |
+             (static_cast<unsigned>(
+                  __bfloat16_as_ushort(__float2bfloat16_rn(f[2 * i + 1])))
+              << 16);
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
 };
 
 __device__ __forceinline__ uint4 load16(const void* p) {
   return __ldg(static_cast<const uint4*>(p));
 }
 
-// One pool window of one channel: the four xhat values (f32) and the routed,
-// gated gradients, in window order 00, 01, 10, 11.
-struct Window {
-  float x[4];
-  float dy[4];
-};
-
-// Element offsets of the window's four inputs in an NHWC tensor.
-struct Offsets {
-  int q[4];
-};
-
-__device__ __forceinline__ Offsets window_offsets(int wi, int c, int H, int W,
-                                                  int C) {
-  const int Ho = H / 2, Wo = W / 2;
-  const int n = wi / (Ho * Wo);
-  const int r = wi - n * (Ho * Wo);
-  const int ho = r / Wo, wo = r - (r / Wo) * Wo;
-  Offsets o;
-  o.q[0] = ((n * H + 2 * ho) * W + 2 * wo) * C + c;
-  o.q[1] = o.q[0] + C;
-  o.q[2] = o.q[0] + W * C;
-  o.q[3] = o.q[2] + C;
-  return o;
-}
-
-template <typename T>
-__device__ __forceinline__ Window route(const T* __restrict__ xhat,
-                                        const T* __restrict__ dp,
-                                        const Offsets& o, int wi, int c, int C,
-                                        float g, float b) {
-  Window w;
-  float z[4], y[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    w.x[q] = to_f32<T>(xhat[o.q[q]]);
-    z[q] = to_f32<T>(from_f32<T>(__fadd_rn(__fmul_rn(w.x[q], g), b)));
-    y[q] = fmaxf(z[q], 0.0f);
-  }
-  const float wmax = fmaxf(fmaxf(y[0], y[1]), fmaxf(y[2], y[3]));
-  const float p = to_f32<T>(dp[wi * C + c]);
-  bool taken = false;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const bool hit = (y[q] == wmax) && !taken;
-    taken = taken || hit;
-    w.dy[q] = (hit && z[q] > 0.0f) ? p : 0.0f;
-  }
-  return w;
+// A last read: the line is allocated evict-first in L1 and L2 (ld.global.cs).
+__device__ __forceinline__ uint4 load16_last(const void* p) {
+  return __ldcs(static_cast<const uint4*>(p));
 }
 
 // ---------------------------------------------------------------------------
@@ -177,7 +178,7 @@ __device__ __forceinline__ Window route(const T* __restrict__ xhat,
 // The window's p goes to one element only, k = the first maximal y, and
 // only if z_k > 0; as y_k = max(z_k, 0) is the window's maximum, that gate
 // is wmax > 0.  So the sums need x_k and the gate, not the four dy that
-// route() builds for dx: the same routing in about half the instructions.
+// window_dx() builds: the same routing in about half the instructions.
 template <typename T>
 __device__ __forceinline__ void accumulate(const uint4 (&xv)[4],
                                            const uint4& pv, const float* gm,
@@ -378,29 +379,137 @@ __global__ void __launch_bounds__(kSumThreads, kSumMinBlocks)
 }
 
 // ---------------------------------------------------------------------------
-// Phase 2: one thread per (window, channel), channel fastest.
+// Phase 2
 // ---------------------------------------------------------------------------
 
+// Per-channel values of a thread's channel vector, held in registers.
+template <int V>
+struct Channels {
+  float gm[V], bt[V], scale[V], s_dy[V], s_dyx[V];
+};
+
+template <int V>
+__device__ __forceinline__ Channels<V> load_dx_channels(
+    const float* __restrict__ gamma, const float* __restrict__ beta,
+    const float* __restrict__ inv, const float* __restrict__ sums, int C,
+    int c0, float n) {
+  Channels<V> k;
+  float iv[V];
+  load_channels<V>(gamma + c0, k.gm);
+  load_channels<V>(beta + c0, k.bt);
+  load_channels<V>(inv + c0, iv);
+  load_channels<V>(sums + c0, k.s_dy);
+  load_channels<V>(sums + C + c0, k.s_dyx);
+#pragma unroll
+  for (int j = 0; j < V; ++j) k.scale[j] = k.gm[j] * iv[j] * (1.0f / n);
+  return k;
+}
+
+// dx of one window of a thread's channel vector, from its four xhat
+// vectors (order 00, 01, 10, 11) and its dP vector: dP routed to the first
+// maximal y = max(z, 0), gated by z > 0, with z = act(xhat*gamma + beta)
+// (product and sum rounded apart), then
+// dx = scale * (n*dy - sum_dy - xhat*sum_dy_xhat) in f32.
 template <typename T>
-__global__ void __launch_bounds__(kDxThreads)
+__device__ __forceinline__ void window_dx(const uint4 (&xv)[4],
+                                          const uint4& pv,
+                                          const Channels<Vec<T>::kN>& k,
+                                          float n, uint4 (&out)[4]) {
+  constexpr int V = Vec<T>::kN;
+  float x[4][V], p[V], d[4][V];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) Vec<T>::unpack(xv[q], x[q]);
+  Vec<T>::unpack(pv, p);
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    float z[4], y[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      z[q] = to_f32<T>(
+          from_f32<T>(__fadd_rn(__fmul_rn(x[q][j], k.gm[j]), k.bt[j])));
+      y[q] = fmaxf(z[q], 0.0f);
+    }
+    const float wmax = fmaxf(fmaxf(y[0], y[1]), fmaxf(y[2], y[3]));
+    bool taken = false;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const bool hit = (y[q] == wmax) && !taken;
+      taken = taken || hit;
+      const float dy = (hit && z[q] > 0.0f) ? p[j] : 0.0f;
+      d[q][j] = k.scale[j] * (n * dy - k.s_dy[j] - x[q][j] * k.s_dyx[j]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) out[q] = Vec<T>::pack(d[q]);
+}
+
+// The launch's shape, worked out once on the host (launch_dx).
+struct DxGrid {
+  int W, C;
+  int windows;         // N * H/2 * W/2, in (pooled row, wo) order
+  int per;             // windows of a thread (fewer in the last tile)
+  int step_r, step_w;  // G windows as (pooled rows, wo)
+  float n;             // N * H * W
+};
+
+// Grid (tiles, chunks), block (L lanes, G groups).  Lane l of block
+// (t, k) owns channel vector k*L + l; group g takes windows
+// t*per*G + g + i*G, i < per, of the tile's per*G.
+template <typename T>
+__global__ void __launch_bounds__(kDxMaxThreads)
     dx_kernel(const T* __restrict__ xhat, const T* __restrict__ dp,
               const float* __restrict__ gamma, const float* __restrict__ beta,
               const float* __restrict__ inv, const float* __restrict__ sums,
-              T* __restrict__ dx, int N, int H, int W, int C,
+              T* __restrict__ dx, DxGrid d,
               unsigned long long* __restrict__ executed) {
-  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(executed, 1ull);
-  const int total = N * (H / 2) * (W / 2) * C;
-  const float n = static_cast<float>(N * H * W);
-  for (int e = blockIdx.x * kDxThreads + threadIdx.x; e < total;
-       e += gridDim.x * kDxThreads) {
-    const int wi = e / C, c = e - (e / C) * C;
-    const Offsets o = window_offsets(wi, c, H, W, C);
-    const Window w = route<T>(xhat, dp, o, wi, c, C, gamma[c], beta[c]);
-    const float scale = gamma[c] * inv[c] * (1.0f / n);
-    const float s_dy = sums[c], s_dyx = sums[C + c];
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0 &&
+      threadIdx.y == 0)
+    atomicAdd(executed, 1ull);
+  constexpr int V = Vec<T>::kN;
+  const int c0 = (blockIdx.y * blockDim.x + threadIdx.x) * V;
+  if (c0 >= d.C) return;
+  const int G = blockDim.y, Wo = d.W / 2;
+  const int first = blockIdx.x * d.per * G;
+  const int end = min(d.windows, first + d.per * G);
+  const Channels<V> k = load_dx_channels<V>(gamma, beta, inv, sums, d.C, c0,
+                                            d.n);
+  int w = first + threadIdx.y;
+  int r = w / Wo, wo = w - r * Wo;
+  while (w < end) {
+    uint4 xv[kDxWindows][4], pv[kDxWindows];
+    int xo[kDxWindows];
+    bool live[kDxWindows];
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
-      dx[o.q[q]] = from_f32<T>(scale * (n * w.dy[q] - s_dy - w.x[q] * s_dyx));
+    for (int u = 0; u < kDxWindows; ++u) {
+      xo[u] = (2 * r * d.W + 2 * wo) * d.C + c0;
+      live[u] = w < end;
+      if (live[u]) {
+        const T* xq = xhat + xo[u];
+        xv[u][0] = load16_last(xq);
+        xv[u][1] = load16_last(xq + d.C);
+        xv[u][2] = load16_last(xq + d.W * d.C);
+        xv[u][3] = load16_last(xq + d.W * d.C + d.C);
+        pv[u] = load16_last(dp + w * d.C + c0);
+      }
+      w += G;
+      r += d.step_r;
+      wo += d.step_w;
+      if (wo >= Wo) {
+        wo -= Wo;
+        ++r;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kDxWindows; ++u) {
+      if (!live[u]) break;
+      uint4 out[4];
+      window_dx<T>(xv[u], pv[u], k, d.n, out);
+      T* o = dx + xo[u];
+      *reinterpret_cast<uint4*>(o) = out[0];
+      *reinterpret_cast<uint4*>(o + d.C) = out[1];
+      *reinterpret_cast<uint4*>(o + d.W * d.C) = out[2];
+      *reinterpret_cast<uint4*>(o + d.W * d.C + d.C) = out[3];
+    }
   }
 }
 
@@ -423,29 +532,49 @@ int launch_sums(const void* xhat, const void* dp, const void* gamma,
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+// (threads, blocks) is ops/bnpool.py::dx_partition's: blocks of `threads`
+// threads, L = min(C/V, threads) lanes by G = threads/L groups, and
+// `blocks` = tiles * chunks, chunks = ceil(C/V / L).
 template <typename T>
 int launch_dx(const void* xhat, const void* dp, const void* gamma,
               const void* beta, const void* inv, const void* sums, void* dx,
-              int N, int H, int W, int C, void* executed, void* stream) {
-  const int total = N * (H / 2) * (W / 2) * C;
-  const int blocks = (total + kDxThreads - 1) / kDxThreads;
-  dx_kernel<T><<<blocks, kDxThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+              int N, int H, int W, int C, int threads, int blocks,
+              void* executed, void* stream) {
+  const int CV = C / Vec<T>::kN;
+  if (threads < 1 || threads > kDxMaxThreads || CV < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int L = min(CV, threads), G = threads / L;
+  const int chunks = (CV + L - 1) / L;
+  if (blocks < chunks || blocks % chunks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = blocks / chunks;
+  DxGrid d;
+  d.W = W;
+  d.C = C;
+  d.windows = N * (H / 2) * (W / 2);
+  d.per = (d.windows + G * tiles - 1) / (G * tiles);
+  d.step_r = G / (W / 2);
+  d.step_w = G % (W / 2);
+  d.n = static_cast<float>(N * H * W);
+  dx_kernel<T><<<dim3(tiles, chunks), dim3(L, G), 0,
+                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(xhat), static_cast<const T*>(dp),
       static_cast<const float*>(gamma), static_cast<const float*>(beta),
       static_cast<const float*>(inv), static_cast<const float*>(sums),
-      static_cast<T*>(dx), N, H, W, C,
-      static_cast<unsigned long long*>(executed));
+      static_cast<T*>(dx), d, static_cast<unsigned long long*>(executed));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // C interface.  Pointers are device pointers of channels_last (NHWC)
-// tensors; gamma, beta, inv are f32 [C]; sums is f32 [2, C].  The sums
-// kernel also takes partial, f32 [blocks, 2, C] scratch, and the grid
-// (`blocks`, no more than the card holds at once).  It needs C a multiple
-// of 16 bytes' worth of channels, at most 256 such vectors, and 16-byte
-// aligned xhat, dp, gamma, beta, partial and sums.  `executed` points to a
+// tensors; gamma, beta, inv are f32 [C]; sums is f32 [2, C].  Both kernels
+// need C a multiple of 16 bytes' worth of channels and every pointer
+// 16-byte aligned.  The sums kernel also takes partial, f32 [blocks, 2, C]
+// scratch, and the grid (`blocks`, no more than the card holds at once),
+// and needs at most 256 channel vectors.  The dx kernel takes its
+// partition (`threads`, `blocks`; an invalid one returns
+// cudaErrorInvalidValue).  `executed` points to a
 // device u64 that the kernel increments once a run.  Each returns the
 // launch's error, else cudaGetLastError() after it (0 on success);
 // cuda_error_string names a nonzero code.
@@ -472,18 +601,18 @@ int bnpool_sums_bf16(const void* xhat, const void* dp, const void* gamma,
 
 int bnpool_dx_f32(const void* xhat, const void* dp, const void* gamma,
                   const void* beta, const void* inv, const void* sums,
-                  void* dx, int N, int H, int W, int C, void* executed,
-                  void* stream) {
+                  void* dx, int N, int H, int W, int C, int threads,
+                  int blocks, void* executed, void* stream) {
   return launch_dx<float>(xhat, dp, gamma, beta, inv, sums, dx, N, H, W, C,
-                          executed, stream);
+                          threads, blocks, executed, stream);
 }
 
 int bnpool_dx_bf16(const void* xhat, const void* dp, const void* gamma,
                    const void* beta, const void* inv, const void* sums,
-                   void* dx, int N, int H, int W, int C, void* executed,
-                   void* stream) {
+                   void* dx, int N, int H, int W, int C, int threads,
+                   int blocks, void* executed, void* stream) {
   return launch_dx<__nv_bfloat16>(xhat, dp, gamma, beta, inv, sums, dx, N, H,
-                                  W, C, executed, stream);
+                                  W, C, threads, blocks, executed, stream);
 }
 
 }  // extern "C"

@@ -310,19 +310,105 @@ def test_sums_partition_covers_every_window_once(shape, itemsize):
 
 def test_sums_vector_path_checks():
     x = torch.zeros((2, 12, 4, 4)).contiguous(memory_format=torch.channels_last)
+    limit = dict(max_vectors=bnpool._SUM_THREADS)
     with pytest.raises(ValueError, match="multiple of 4"):
-        bnpool._check_vector_path(x[:, :10], [x])
+        bnpool._check_vector_path("bnpool_sums", x[:, :10], [x], **limit)
     wide = torch.zeros((1, 1032, 2, 2))
     with pytest.raises(ValueError, match="at most 1024"):
-        bnpool._check_vector_path(wide, [wide])
+        bnpool._check_vector_path("bnpool_sums", wide, [wide], **limit)
     flat = torch.zeros(64)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        bnpool._check_vector_path(x, [x, flat[1:13]])
-    bnpool._check_vector_path(x, [x, flat[4:16]])
+        bnpool._check_vector_path("bnpool_sums", x, [x, flat[1:13]], **limit)
+    bnpool._check_vector_path("bnpool_sums", x, [x, flat[4:16]], **limit)
+
+
+def _dx_kernel_writes(n, c, h, w, itemsize):
+    """The dx kernel's launch (csrc/bnpool.cu::launch_dx) and index walk
+    (dx_kernel) for ``dx_partition``'s grid, in Python: the block and grid
+    it derives from (threads, blocks), then each thread's channel vector
+    and windows, (row, wo) advanced by adds.  Returns the grid and the
+    element offsets of every dx element written and every dP element
+    read."""
+    threads, blocks = bnpool.dx_partition(n, c, h, w, itemsize)
+    v = 16 // itemsize
+    vectors, wo_count = c // v, w // 2
+    windows = n * (h // 2) * wo_count
+    lanes = min(vectors, threads)
+    groups = threads // lanes
+    chunks = -(-vectors // lanes)
+    assert blocks % chunks == 0
+    tiles = blocks // chunks
+    per = -(-windows // (groups * tiles))
+    step_r, step_w = divmod(groups, wo_count)
+    x_base, p_base = [], []
+    for tile in range(tiles):
+        first = tile * per * groups
+        end = min(windows, first + per * groups)
+        for chunk in range(chunks):
+            for lane in range(lanes):
+                c0 = (chunk * lanes + lane) * v
+                if c0 >= c:
+                    continue
+                for g in range(groups):
+                    wi = first + g
+                    r, wo = divmod(wi, wo_count)
+                    while wi < end:
+                        x_base.append((2 * r * w + 2 * wo) * c + c0)
+                        p_base.append(wi * c + c0)
+                        wi, r, wo = wi + groups, r + step_r, wo + step_w
+                        if wo >= wo_count:
+                            r, wo = r + 1, wo - wo_count
+    quad = np.array([0, c, w * c, w * c + c])
+    lane_elems = np.arange(v)
+    written = (np.array(x_base)[:, None, None] + quad[None, :, None]
+               + lane_elems[None, None, :]).ravel()
+    read = (np.array(p_base)[:, None] + lane_elems[None, :]).ravel()
+    return (threads, blocks), written, read
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("shape", PARTITION_SHAPES + [(64, 512, 2, 2)])
+def test_dx_partition_covers_every_window_vector_once(shape, itemsize):
+    """Every (pooled row, wo, channel vector) is taken by exactly one
+    thread: each dx element written once and each dP element read once.
+    The last shape (s4 at world 4's batch) splits the channel vectors over
+    several blocks."""
+    n, c, h, w = shape
+    (threads, blocks), written, read = _dx_kernel_writes(n, c, h, w, itemsize)
+    assert 1 <= threads <= bnpool._DX_THREADS
+    np.testing.assert_array_equal(
+        np.bincount(written, minlength=n * c * h * w), 1)
+    np.testing.assert_array_equal(
+        np.bincount(read, minlength=n * c * (h // 2) * (w // 2)), 1)
+    # The partition is a function of the shape alone, and at the VGG-11
+    # pool shapes the grid has a block for each of the H100's 132 SMs.
+    assert (threads, blocks) == bnpool.dx_partition(n, c, h, w, itemsize)
+    if shape in PARTITION_SHAPES[:5]:
+        assert blocks >= 132
+
+
+def test_dx_vector_path_checks():
+    """bnpool_dx's 16-byte vectors: C a multiple of V, every tensor it
+    reads and writes aligned, the kernel named; no limit on C."""
+    x = torch.zeros((2, 16, 4, 4), dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    inv, flat = torch.ones(16), torch.zeros(64)
+    sums = torch.zeros((2, 16))
+    with pytest.raises(ValueError, match="bnpool_dx_bf16 reads 8 channels.*"
+                       "multiple of 8"):
+        bnpool._check_vector_path("bnpool_dx_bf16", x[:, :12], [x])
+    for bad in (flat[1:17], flat[2:34].view(2, 16)):   # inv, sums
+        with pytest.raises(ValueError, match="bnpool_dx_bf16 needs 16-byte"):
+            bnpool._check_vector_path("bnpool_dx_bf16", x,
+                                      [x, x, inv, bad, x])
+    bnpool._check_vector_path("bnpool_dx_bf16", x, [x, x, inv, sums, x])
+    wide = torch.zeros((1, 4104, 2, 2))
+    bnpool._check_vector_path("bnpool_dx", wide, [wide])
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(16, 32, 32, 64), (129, 6, 6, 96)])
+@pytest.mark.parametrize("shape", [(16, 32, 32, 64), (129, 6, 6, 96),
+                                   (5, 10, 2, 24)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_kernels_match_plain_version(dtype, shape):
     if not torch.cuda.is_available():
