@@ -94,7 +94,30 @@ Phases, in order; any failure exits non-zero:
                bf16 ``single`` and ResNet-18 f32 ``allreduce``; with two or
                more GPUs, ResNet-18 ``allreduce`` on ``min(4, count)``
                NCCL ranks through the CLI (``--model resnet18``);
-  7. report  — the ``kernels`` JSON line (each kernel in f32, with the
+  7. ft      — checkpoints, preemption and the non-finite guard on
+               VGG-11 f32 ``single``, batch 256, full width, augmentation
+               on, 60 batches (three windows) and 2 eval batches, with
+               deterministic cuDNN: ``run(2)`` against ``run(1)`` saved
+               plus a fresh Trainer's resumed ``run(2)``, bitwise; a chaos
+               ``preempt:25`` stopping at the boundary at 40 with an
+               emergency save and a fresh Trainer resuming there, bitwise
+               equal to one uninterrupted epoch, each bnpool kernel run 5
+               times a step on the device in both halves; ``--nonfinite
+               skip`` with no fault bitwise equal to the unguarded run.
+               Then NaN gradients at batch 30 under ``skip`` for
+               ``single``, ``compress-int8`` and ``powersgd`` (world-1
+               NCCL): the ring's ok column 0 at batch 30 only, one update
+               skipped, finite losses and state; ``halt`` raises; a fresh
+               guarded Trainer's first window with a planned fault under
+               sync-debug "error"; the steady step with the guard off and
+               on, f32 and bf16, in turns; a checkpoint's bytes and the
+               wall time of its save, restore and emergency save for
+               VGG-11 and ResNet-34 f32.  With two or more GPUs, the CLI
+               on 2 NCCL ranks, ``compress-int8 --deterministic
+               --checkpoint-dir D --chaos preempt:25``, then the same
+               command again: every rank's ``--save`` bitwise equal to an
+               uninterrupted 2-rank run's;
+  8. report  — the ``kernels`` JSON line (each kernel in f32, with the
                main path's runs, and in bf16, with the VGG-11 bf16 path's),
                the card's name and power limit, and as the last line
                ``{"ok": true, "device": {...}}``.
@@ -157,6 +180,8 @@ CHECK_SHAPES = SHAPES + [(n, c, h, w) for n in (BATCH // 2, BATCH // 4)
 # 4 float4 columns each, the last of them 0 (48 columns in all).
 RAGGED = (129, 96, 6, 6)
 TRAIN_STEPS = 40
+FT_STEPS = 60                   # phase ft: three 20-step windows
+EVAL_FT = 2
 EPOCH_ROWS = 50000              # the training split: 195 batches + 80 rows
 EVAL_BATCHES = 5
 RTOL, ATOL = 5e-4, 1e-4
@@ -840,6 +865,32 @@ def phase_train(card_line):
                             "single/per-step": per_runs}
 
 
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_cli(args, label, timeout=600):
+    """``python -m cs744_ddp_tpu_torch.cli ARGS`` in a session of its own
+    (a timeout kills the ranks it spawned); its stdout, or a failure."""
+    cmd = [sys.executable, "-m", "cs744_ddp_tpu_torch.cli"] + list(args)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SmokeFailure(f"{label}: no end in {timeout} s")
+    check(proc.returncode == 0, f"{label} failed:\n"
+          f"{stdout[-3000:]}\n{stderr[-3000:]}")
+    return stdout
+
+
 def spawn_world(world, tier, out_dir, card_line, model="vgg11"):
     """``world`` NCCL ranks of the CLI (``--num-devices``) training
     ``tier`` on ``model`` 40 steps: the reference's dataset-size lines for
@@ -847,31 +898,15 @@ def spawn_world(world, tier, out_dir, card_line, model="vgg11"):
     the second, and every rank's final parameters bitwise equal to rank
     0's."""
     import re
-    import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
     save = os.path.join(out_dir, f"{model}_{tier}_w{world}")
-    cmd = [sys.executable, "-m", "cs744_ddp_tpu_torch.cli",
-           "--num-devices", str(world), "--strategy", tier,
-           "--model", model,
-           "--limit-train-batches", str(TRAIN_STEPS),
-           "--limit-eval-batches", "2", "--port", str(port), "--save", save]
     t0 = time.perf_counter()
-    # A session of its own, so that a timeout kills the ranks it spawned.
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True,
-                            start_new_session=True,
-                            cwd=os.path.dirname(os.path.abspath(__file__)))
-    try:
-        stdout, stderr = proc.communicate(timeout=600)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        raise SmokeFailure(f"{world} NCCL ranks of {tier}: no end in 600 s")
+    stdout = run_cli(["--num-devices", str(world), "--strategy", tier,
+                      "--model", model,
+                      "--limit-train-batches", str(TRAIN_STEPS),
+                      "--limit-eval-batches", "2", "--port",
+                      str(free_port()), "--save", save],
+                     f"{world} NCCL ranks of {tier}")
     wall = time.perf_counter() - t0
-    check(proc.returncode == 0, f"{world} NCCL ranks of {tier} failed:\n"
-          f"{stdout[-3000:]}\n{stderr[-3000:]}")
     per = BATCH // world
     for line in (f"Size of training set is {-(-(-(-50000 // world)) // per)}",
                  f"Size of test set is {-(-10000 // per)}"):
@@ -1172,6 +1207,279 @@ def phase_models(card_line):
     return bf16_path, paths
 
 
+def ft_trainer(tier="single", model="vgg11", precision="f32",
+               log=lambda s: None, **kw):
+    """A fresh Trainer of phase ft: ``FT_STEPS`` augmented batches (three
+    20-step windows, no ragged tail), ``EVAL_FT`` eval batches."""
+    from cs744_ddp_tpu_torch.train.loop import Trainer
+    return Trainer(model=model, strategy=tier, precision=precision,
+                   global_batch=BATCH, augment=True,
+                   limit_train_batches=FT_STEPS, limit_eval_batches=EVAL_FT,
+                   log=log, **kw)
+
+
+def check_same_state(label, got, want):
+    from cs744_ddp_tpu_torch.train.step import named_state_tensors
+    a, b = named_state_tensors(got.state), named_state_tensors(want.state)
+    check(list(a) == list(b), f"{label}: other tensors")
+    for k in a:
+        check(torch.equal(a[k], b[k]), f"{label}: {k} differs")
+    return len(a)
+
+
+def ring_rows(trainer, steps):
+    """The metric ring's rows of the last ``steps`` steps (host copy)."""
+    from cs744_ddp_tpu_torch.obs import ringbuf
+    ring = trainer.train_window().ring
+    return ringbuf.drain_rows(ring.buf.cpu().numpy(), ring.writes, steps)
+
+
+def check_guard_flags(label, trainer, steps, bad):
+    """The ring's ok column 0 at exactly batch ``bad`` and 1 elsewhere,
+    its markers the batches, one update skipped, finite losses and
+    state."""
+    from cs744_ddp_tpu_torch.train.step import state_tensors
+    rows = ring_rows(trainer, steps)
+    want = [0.0 if i == bad else 1.0 for i in range(steps)]
+    check(rows[:, 3].tolist() == list(range(steps))
+          and rows[:, 2].tolist() == want,
+          f"{label}: ok column {rows[:, 2].tolist()} at batches "
+          f"{rows[:, 3].tolist()}, want 0 at {bad} only")
+    check(trainer.nonfinite_skipped == 1, f"{label}: "
+          f"{trainer.nonfinite_skipped} updates skipped, want 1")
+    check(bool(np.isfinite(rows[:, 0]).all()) and all(
+        bool(torch.isfinite(t.float()).all())
+        for t in state_tensors(trainer.state)),
+        f"{label}: a loss or a state tensor is not finite")
+
+
+def save_costs(card_line):
+    """Bytes and wall times of a checkpoint for VGG-11 f32 and ResNet-34
+    f32 (the zoo's largest state), ``single``: the epoch save (the copy
+    to the host and the fsynced file), the restore (read and ``copy_``
+    into the Trainer's tensors on the card) and the emergency save."""
+    from cs744_ddp_tpu_torch.train.checkpoint import CheckpointManager
+    for model in ("vgg11", "resnet34"):
+        tr = ft_trainer(model=model)
+        with tempfile.TemporaryDirectory() as d:
+            mngr = CheckpointManager(d, config=tr.checkpoint_config())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr._save(mngr, 0)
+            save_s = time.perf_counter() - t0
+            nbytes = os.path.getsize(os.path.join(d, "epoch_0.pt"))
+            t0 = time.perf_counter()
+            tensors, _ = mngr.restore()
+            tr.load_checkpoint(tensors)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tr._save(mngr, 0, 40)
+            mid_s = time.perf_counter() - t0
+        state = sum(t.numel() * t.element_size() for t in tensors.values())
+        print(f"[ft] checkpoint of {model} f32 single: {nbytes} bytes on "
+              f"disk ({state} of tensors, {len(tensors)} of them); save "
+              f"{1e3 * save_s:.1f} ms, restore {1e3 * restore_s:.1f} ms, "
+              f"emergency save {1e3 * mid_s:.1f} ms (wall, host copy and "
+              f"fsync included)  [{card_line}]")
+        del tr, tensors
+
+
+def guard_cost(card_line):
+    """The steady windowed step of VGG-11 ``single`` with the guard off
+    and with ``--nonfinite skip`` (no fault), f32 then bf16, timed in
+    turns (off, on, on, off) by ``steady_state_throughput``."""
+    from cs744_ddp_tpu_torch.ft import FTConfig
+    for precision in ("f32", "bf16"):
+        pair = {"off": ft_trainer(precision=precision),
+                "on": ft_trainer(precision=precision,
+                                 ft=FTConfig(nonfinite="skip"))}
+        ms = {"off": [], "on": []}
+        for which in ("off", "on", "on", "off"):
+            ips, _ = pair[which].steady_state_throughput(
+                max_iters=2 * WINDOW, window_iters=WINDOW)
+            ms[which].append(1e3 * BATCH / ips)
+        off, on = statistics.mean(ms["off"]), statistics.mean(ms["on"])
+        print(f"[ft] guard cost, vgg11 {precision} single windowed: steady "
+              f"step {off:.4f} ms off ({ms['off'][0]:.4f}, "
+              f"{ms['off'][1]:.4f}), {on:.4f} ms on ({ms['on'][0]:.4f}, "
+              f"{ms['on'][1]:.4f}); on - off {on - off:+.4f} ms a step  "
+              f"[{card_line}]")
+        del pair
+
+
+def phase_ft(card_line):
+    """Checkpoints, preemption and the non-finite guard; see the module
+    docstring.  Returns each path's kernel runs."""
+    import torch.distributed as dist
+    from cs744_ddp_tpu_torch.ft import ChaosPlan, FTConfig, NonFiniteError
+    from cs744_ddp_tpu_torch.ops import bnpool
+    from cs744_ddp_tpu_torch.train.checkpoint import CheckpointManager
+    from cs744_ddp_tpu_torch.train.step import WARMUP_ITERS
+
+    check(not dist.is_initialized(), "a process group exists already")
+    t_phase = time.perf_counter()
+    paths = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            # 1. Resume after an epoch.
+            base2 = ft_trainer()
+            base2.run(2)
+            ft_trainer().run(1, checkpoint_dir=os.path.join(tmp, "epoch"))
+            lines = []
+            resumed = ft_trainer(log=lines.append)
+            resumed.run(2, checkpoint_dir=os.path.join(tmp, "epoch"))
+            check("Resumed from checkpoint: epoch 1" in lines,
+                  f"epoch resume: no resume line in {lines[:4]}")
+            n = check_same_state("epoch resume", resumed, base2)
+            print(f"[ft] epoch resume: run(1) saved, a fresh Trainer's "
+                  f"run(2) resumed from epoch 1: {n} tensors bitwise equal "
+                  f"to run(2) uninterrupted ({FT_STEPS} steps an epoch, "
+                  f"deterministic cuDNN)  ok")
+            del base2, resumed
+
+            # 2. Resume mid-epoch after a chaos SIGTERM at batch 25.
+            base1 = ft_trainer()
+            base1.run(1)
+            mid = os.path.join(tmp, "mid")
+            lines = []
+            bnpool.reset_launch_counts()
+            cut = ft_trainer(log=lines.append, ft=FTConfig(
+                chaos=ChaosPlan.parse(["preempt:25"])))
+            cut.run(1, checkpoint_dir=mid)
+            first = bnpool.executed_counts()
+            check(cut.preempted and CheckpointManager(mid)
+                  .latest_mid_epoch() == (0, 40),
+                  f"preempt:25: preempted {cut.preempted}, saved at "
+                  f"{CheckpointManager(mid).latest_mid_epoch()}, want "
+                  f"(0, 40); {lines[-3:]}")
+            bnpool.reset_launch_counts()
+            resumed = ft_trainer(log=lines.append)
+            resumed.run(1, checkpoint_dir=mid)
+            second = bnpool.executed_counts()
+            check("Resumed from mid-epoch checkpoint: epoch 0, step 40"
+                  in lines, f"mid-epoch resume: {lines[-6:]}")
+            n = check_same_state("mid-epoch resume", resumed, base1)
+            for label, runs, steps in (("first half", first, 40),
+                                       ("second half", second, 20)):
+                want = variants("f32", 5 * (WARMUP_ITERS + steps))
+                check(runs == want, f"mid-epoch resume, {label}: kernel "
+                      f"runs {runs}, want {want}")
+                paths[f"ft single/{label} ({steps} steps)"] = runs
+            print(f"[ft] mid-epoch resume: preempt:25 stopped at the "
+                  f"boundary at 40 with an emergency save; a fresh Trainer "
+                  f"resumed at (0, 40): {n} tensors bitwise equal to one "
+                  f"uninterrupted epoch; kernel runs counted on the device "
+                  f"{first} (3 warm-up steps + 40 replays) and {second} "
+                  f"(3 + 20)  ok")
+            del cut, resumed
+
+            # 3. The guard: no fault, then NaN gradients at batch 30.
+            bnpool.reset_launch_counts()
+            guarded = ft_trainer(ft=FTConfig(nonfinite="skip"))
+            guarded.run(1)
+            paths["ft single skip/window"] = bnpool.executed_counts()
+            n = check_same_state("guard on, no fault", guarded, base1)
+            check(guarded.last_epoch_timers.losses ==
+                  base1.last_epoch_timers.losses, "guard on, no fault: "
+                  "other losses")
+            print(f"[ft] --nonfinite skip, no fault: {FT_STEPS} steps, "
+                  f"{n} tensors and the losses bitwise equal to the "
+                  f"unguarded run  ok")
+            del guarded, base1
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    bad = 30
+    plan = [f"nonfinite_grad:{bad}"]
+    for tier in ("single", "compress-int8", "powersgd"):
+        bnpool.reset_launch_counts()
+        tr = ft_trainer(tier, ft=FTConfig(nonfinite="skip",
+                                          chaos=ChaosPlan.parse(plan)))
+        tr.train_model(0)
+        paths[f"ft {tier} skip nonfinite_grad/window"] = \
+            bnpool.executed_counts()
+        check_guard_flags(tier, tr, FT_STEPS, bad)
+        print(f"[ft] {tier:13s} nonfinite_grad:{bad} under skip: ring ok "
+              f"column 0 at batch {bad} only, 1 update skipped, losses and "
+              f"state finite  ok")
+        del tr
+    tr = ft_trainer(ft=FTConfig(nonfinite="halt",
+                                chaos=ChaosPlan.parse(plan)))
+    try:
+        tr.train_model(0)
+        raise SmokeFailure("halt: no NonFiniteError")
+    except NonFiniteError as e:
+        print(f"[ft] halt: NonFiniteError ({e})  ok")
+    del tr
+    # No host sync in a fresh guarded Trainer's first window, capture
+    # included, with a planned fault in it.
+    tr = ft_trainer(ft=FTConfig(nonfinite="skip", chaos=ChaosPlan.parse(
+        ["nonfinite_grad:10"])))
+    window = tr.train_window()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = window(0, 0, WINDOW)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ok = window.columns(out.cpu().numpy(), 0, WINDOW)[1]
+    check(ok.tolist() == [0.0 if i == 10 else 1.0 for i in range(WINDOW)],
+          f"sync-debug window: ok column {ok.tolist()}")
+    print("[ft] a fresh guarded Trainer's first window (warm-up, capture, "
+          "20 replays, NaN at batch 10) under "
+          "torch.cuda.set_sync_debug_mode('error'): no host sync; ok 0 at "
+          "batch 10 only  ok")
+    del tr, window
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+    guard_cost(card_line)
+    save_costs(card_line)
+
+    count = torch.cuda.device_count()
+    if count >= 2:
+        ft_world2(card_line)
+    else:
+        print(f"[ft] the 2-rank CLI preemption was not run on this "
+              f"machine: {count} GPU")
+    print(f"[ft] phase ft: {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
+def ft_world2(card_line):
+    """The CLI on 2 NCCL ranks, ``compress-int8``, deterministic cuDNN:
+    preempted by ``--chaos preempt:25`` into a checkpoint directory, the
+    same command again resumes; every rank's ``--save`` bitwise equal to
+    an uninterrupted 2-rank run's."""
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--num-devices", "2", "--strategy", "compress-int8",
+                  "--deterministic", "--limit-train-batches", str(FT_STEPS),
+                  "--limit-eval-batches", str(EVAL_FT)]
+        ck = os.path.join(tmp, "ck")
+        cut = common + ["--checkpoint-dir", ck, "--save",
+                        os.path.join(tmp, "cut")]
+        out = run_cli(cut + ["--chaos", "preempt:25", "--port",
+                             str(free_port())], "2-rank preempt")
+        check("emergency checkpoint saved" in out, f"2-rank preempt: "
+              f"{out[-2000:]}")
+        out = run_cli(cut + ["--port", str(free_port())], "2-rank resume")
+        check("Resumed from mid-epoch checkpoint: epoch 0, step 40" in out,
+              f"2-rank resume: {out[-2000:]}")
+        run_cli(common + ["--save", os.path.join(tmp, "full"), "--port",
+                          str(free_port())], "2-rank uninterrupted")
+        for r in range(2):
+            got = torch.load(os.path.join(tmp, "cut", f"rank{r}.pt"))
+            want = torch.load(os.path.join(tmp, "full", f"rank{r}.pt"))
+            for k, v in want.items():
+                check(torch.equal(got[k], v), f"2-rank resume: rank {r} "
+                      f"differs in {k}")
+    print(f"[ft] compress-int8 on 2 NCCL ranks through the CLI: preempt:25 "
+          f"saved at 40, the rerun resumed; every rank's --save bitwise "
+          f"equal to an uninterrupted run's  ok  [{card_line}]")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--time-only", action="store_true",
@@ -1212,6 +1520,7 @@ def main(argv=None) -> int:
     by_path.update(phase_strategies(card_line))
     (bf16_runs, bf16_launches), model_paths = phase_models(card_line)
     by_path.update(model_paths)
+    by_path.update(phase_ft(card_line))
 
     replaces = {"bnpool_sums": "cs744_ddp_tpu/ops/bnpool_pallas.py:147",
                 "bnpool_dx": "cs744_ddp_tpu/ops/bnpool_pallas.py:184"}

@@ -8,6 +8,9 @@ GPU, with the reference training script's print schedule.
     python -m cs744_ddp_tpu_torch.cli --num-devices 4 --strategy ddp
     python -m cs744_ddp_tpu_torch.cli --device cpu --num-devices 2
     python -m cs744_ddp_tpu_torch.cli --profile-phases          # fwd/bwd split
+    # save every epoch, resume on the rerun; SIGTERM saves mid-epoch:
+    python -m cs744_ddp_tpu_torch.cli --epochs 3 --checkpoint-dir ckpt
+    python -m cs744_ddp_tpu_torch.cli --nonfinite skip --chaos nonfinite_grad:30
     # one process per node, the reference's launch:
     python -m cs744_ddp_tpu_torch.cli --master HOST --num-nodes 2 --rank 0
 
@@ -19,6 +22,15 @@ captured CUDA graph of the step, with one device-to-host fetch per window
 of ``--num-nodes`` (a world-1 group when that is 1).  Without
 ``cifar-10-batches-py`` under ``--data-dir`` the deterministic synthetic
 stand-in is used.
+
+``--checkpoint-dir`` saves the whole training state after every epoch and
+resumes from it when the same command runs again (another configuration
+is refused); SIGTERM or SIGINT stops the run at the next window boundary
+with an emergency save, from which the rerun resumes, bitwise equal to an
+uninterrupted run (with ``--deterministic`` on the card).  A SIGTERM to
+one rank of a multi-rank run alone leaves the others waiting at their
+next collective: signal every rank.  ``--nonfinite`` guards every step
+against a NaN/Inf loss or gradient; ``--chaos`` injects faults.
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ import torch
 import torch.distributed as dist
 
 from .device import resolve_device
+from .ft import FTConfig, POLICIES, ChaosPlan, check_sites
 from .models import get_model
 from .ops import _build
 from .ops.sgd import SGDConfig
@@ -102,11 +115,58 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="cuda (the default) or cpu")
     p.add_argument("--save", default=None, metavar="DIR",
                    help="write each rank's final model state_dict to "
-                        "DIR/rank<r>.pt")
+                        "DIR/rank<r>.pt (not after a preemption)")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="save the training state (parameters, BN "
+                        "statistics, momentum, comm state) after each "
+                        "epoch and resume from the newest save; SIGTERM "
+                        "or SIGINT saves mid-epoch at the next window "
+                        "boundary and exits 0")
+    p.add_argument("--deterministic", action="store_true",
+                   help="deterministic cuDNN algorithms, so that a resumed "
+                        "run is bitwise equal to an uninterrupted one on "
+                        "the card (the CPU is deterministic anyway)")
+    p.add_argument("--nonfinite", default="off", choices=POLICIES,
+                   help="per-step finiteness guard on the loss and the "
+                        "global gradient norm, inside the captured step: "
+                        "halt = raise (the bad update is never applied), "
+                        "skip = keep the prior state and continue, "
+                        "restore = also roll back to the last checkpoint "
+                        "snapshot; off (default) builds no guard")
+    p.add_argument("--chaos", action="append", default=None,
+                   metavar="SITE:step[:seed]",
+                   help="inject a deterministic fault once at the given "
+                        "step (repeatable): nonfinite_grad (NaN gradients "
+                        "at that batch; requires --nonfinite other than "
+                        "off) or preempt (SIGTERM at the first window "
+                        "boundary at or after it; requires "
+                        "--checkpoint-dir)")
     return p.parse_args(argv)
 
 
+def ft_config_from_args(args: argparse.Namespace) -> Optional[FTConfig]:
+    """FTConfig when the guard or a chaos plan is asked for, else None
+    (the Trainer's ft=None path: no guard built).  Refuses, as the
+    reference does, NaN injection without a guard and a chaos preemption
+    without a checkpoint directory, and any site the port cannot fire."""
+    if args.nonfinite == "off" and not args.chaos:
+        return None
+    try:
+        plan = ChaosPlan.parse(args.chaos)
+        check_sites(plan)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    if plan.steps("nonfinite_grad") and args.nonfinite == "off":
+        raise SystemExit("--chaos nonfinite_grad requires --nonfinite "
+                         "halt, skip or restore")
+    if plan.steps("preempt") and args.checkpoint_dir is None:
+        raise SystemExit("--chaos preempt requires --checkpoint-dir")
+    return FTConfig(nonfinite=args.nonfinite, chaos=plan)
+
+
 def _train(args: argparse.Namespace) -> None:
+    if args.deterministic:
+        torch.backends.cudnn.deterministic = True
     trainer = Trainer(
         args.model, args.strategy, precision=args.precision,
         compress_rank=args.compress_rank,
@@ -116,9 +176,10 @@ def _train(args: argparse.Namespace) -> None:
                           weight_decay=args.weight_decay),
         limit_train_batches=args.limit_train_batches,
         limit_eval_batches=args.limit_eval_batches,
-        profile_phases=args.profile_phases, metrics_ring=args.metrics_ring)
-    trainer.run(args.epochs)
-    if args.save:
+        profile_phases=args.profile_phases, metrics_ring=args.metrics_ring,
+        ft=ft_config_from_args(args))
+    trainer.run(args.epochs, checkpoint_dir=args.checkpoint_dir)
+    if args.save and not trainer.preempted:
         os.makedirs(args.save, exist_ok=True)
         torch.save(trainer.state.model.state_dict(),
                    os.path.join(args.save, f"rank{trainer.rank}.pt"))
@@ -142,6 +203,7 @@ def _spawned_rank(local: int, args: argparse.Namespace) -> None:
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
     get_model(args.model)     # an unknown name fails here, not in each rank
+    ft_config_from_args(args)     # so does a refused fault-tolerance config
     if args.num_devices is None:
         if args.num_nodes > 1:
             initialize_distributed(args.master, args.num_nodes, args.rank,

@@ -8,11 +8,20 @@ reference training script are kept:
   * like torch's DistributedSampler, the index list is wrap-padded to a
     multiple of the world size and dealt round-robin: rank r takes
     ``perm[r::world]``.
+
+``rank_data_keys`` is the reference's ``elastic/protocol.py`` function of
+that name, which checkpoints record and a resume re-derives.
 """
 
 from __future__ import annotations
 
+import zlib
+from typing import Tuple
+
 import numpy as np
+
+# How many leading indices of each rank's stream a data-order key digests.
+_KEY_PREFIX = 64
 
 
 def _wrap_pad(perm: np.ndarray, total: int) -> np.ndarray:
@@ -73,3 +82,20 @@ def global_epoch_indices(n: int, world: int, *, seed: int = 0,
                                reshuffle_each_epoch=reshuffle_each_epoch)
                 for r in range(world)]
     return np.stack([s.epoch_indices(epoch) for s in samplers])
+
+
+def rank_data_keys(n: int, world: int, *, seed: int = 0, epoch: int = 0,
+                   shuffle: bool = True,
+                   reshuffle_each_epoch: bool = False) -> Tuple[int, ...]:
+    """Per-rank data-order keys: a crc32 digest of the first
+    ``_KEY_PREFIX`` indices each rank deals in ``epoch``.  Written into
+    checkpoint metadata at save time and re-derived at resume time: a
+    mismatch means the dataset or seed changed under the checkpoint."""
+    num = -(-n // world) * world
+    order = canonical_epoch_order(
+        n, seed=seed, shuffle=shuffle, epoch=epoch,
+        reshuffle_each_epoch=reshuffle_each_epoch, pad_to=num)
+    return tuple(
+        int(zlib.crc32(np.ascontiguousarray(
+            order[r::world][:_KEY_PREFIX], dtype=np.int64).tobytes()))
+        for r in range(world))

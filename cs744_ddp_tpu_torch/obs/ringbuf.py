@@ -13,7 +13,9 @@ Columns (``METRICS``):
 - ``loss``         — the step's loss, meaned over the ranks;
 - ``grad_sqnorm``  — the sum over parameters of sum(g*g) of the post-sync
                      gradients, the same on every rank;
-- ``ok``           — 1.0 (the non-finite guard is not ported yet);
+- ``ok``           — the non-finite guard's flag (1.0: finite loss and
+                     gradient norm, the update applied; 0.0: not, the
+                     state kept), 1.0 when the guard is off;
 - ``marker``       — the absolute batch index as f32, exact below 2**24
                      (checked at drain).
 

@@ -223,7 +223,10 @@ class CompressedPsum:
     int8 shares one scale per parameter: the |v| maxima of all parameters
     go through ONE all-reduce MAX, then ``q = clip(round(v / scale), -L,
     L)`` with ``L = 127 // world`` and ``scale = amax / L``, so that the
-    int8 sum cannot overflow.  With ``comm=None`` it compresses without
+    int8 sum cannot overflow.  A non-finite maximum is sent as +Inf, so
+    that a NaN or Inf gradient on any rank makes every rank's mean
+    non-finite (the non-finite guard reads it there); the reference's
+    scale turns a NaN maximum into 1.0.  With ``comm=None`` it compresses without
     error feedback."""
 
     stateful = True
@@ -249,6 +252,11 @@ class CompressedPsum:
         limit = max(1, 127 // world)
         if self.qdtype == "int8":
             amax = torch.stack([v.abs().max() for v in vs])
+            # A non-finite gradient on any rank must reach every rank's
+            # output, as a sum all-reduce carries it: int8 cannot hold a
+            # NaN, and a MAX over the ranks may drop one, so it goes on
+            # the wire as +Inf, whose scale makes the output non-finite.
+            amax = torch.where(torch.isfinite(amax), amax, float("inf"))
             group.all_reduce_max(amax)
             # amax / L as XLA computes it: times the f32 reciprocal of L,
             # so that both packages quantize with the same scale.

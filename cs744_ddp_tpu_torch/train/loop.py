@@ -25,12 +25,22 @@
     makes at most windows + 2 (the windows, the tail, the eval), the
     per-step path one or two per step.
   * Only rank 0 prints.
+  * Fault tolerance (``ft=FTConfig(...)``, ``run(checkpoint_dir=...)``):
+    a checkpoint after every epoch and an emergency one on SIGTERM at the
+    next window boundary, each resumed bitwise (``train/checkpoint.py``);
+    the non-finite guard inside the step, its flags read after the
+    window's one fetch and acted on by the policy; the chaos plan's
+    ``nonfinite_grad`` and ``preempt`` sites.  A restore ``copy_``s into
+    the tensors the captured step holds: ``self.state`` is never rebound.
 """
 
 from __future__ import annotations
 
+import os
+import signal
 import time
-from typing import Callable, Iterator, NamedTuple, Optional, Tuple, Union
+from typing import (Callable, Dict, Iterator, NamedTuple, Optional, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -39,12 +49,15 @@ import torch.distributed as dist
 from .. import models as model_zoo
 from ..data import cifar10, sharding
 from ..device import resolve_device, set_f32_parity
+from ..ft import (NULL_CHAOS, FTConfig, NonFiniteError, POLICIES,
+                  PreemptedError, PreemptionGuard, check_sites)
 from ..obs import ringbuf
 from ..ops import sgd
 from ..parallel import Group, get_strategy, initialize_distributed
 from ..parallel import strategies
 from ..utils.metrics import WINDOW, WindowedTimers
 from . import step as steplib
+from .checkpoint import CheckpointManager, state_digest, validate_rank_keys
 
 GLOBAL_BATCH = 256      # the reference's batch_size
 SEED = 0                # the reference's torch.manual_seed(0)
@@ -125,7 +138,11 @@ class Trainer:
     ``"f32"`` (reference parity, the default) or ``"bf16"`` (mixed
     precision: bf16 activations, convolutions and matmuls; f32 master
     weights, gradients, optimizer and comm state, BN statistics and
-    loss)."""
+    loss).
+
+    ``ft``: the fault-tolerance config (None: no guard, no chaos; the
+    step is built as without it).  Its plan may name only the sites the
+    port fires (``ft.check_sites``)."""
 
     def __init__(self, model: str = "vgg11", strategy: str = "allreduce", *,
                  precision: str = "f32",
@@ -138,7 +155,8 @@ class Trainer:
                  limit_eval_batches: Optional[int] = None,
                  profile_phases: bool = False,
                  metrics_ring: Optional[int] = None,
-                 log: Callable[[str], None] = print):
+                 log: Callable[[str], None] = print,
+                 ft: Optional[FTConfig] = None):
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of "
                              f"{sorted(PRECISIONS)}, got {precision!r}")
@@ -153,6 +171,27 @@ class Trainer:
                 raise ValueError(f"{name} must be >= 1, got {lim}")
         self.metrics_ring = ring_capacity(metrics_ring, profile_phases)
         self.profile_phases = profile_phases
+        # Fault tolerance: ft=None keeps every hot path as without it.
+        self.ft = ft
+        self.chaos = ft.chaos if ft is not None else NULL_CHAOS
+        check_sites(self.chaos)
+        self._nf_policy = ft.nonfinite if ft is not None else "off"
+        if self._nf_policy not in POLICIES:
+            raise ValueError(f"nonfinite policy must be one of {POLICIES}, "
+                             f"got {self._nf_policy!r}")
+        self._guard_on = self._nf_policy != "off"
+        self._nf_chaos_steps = self.chaos.steps("nonfinite_grad")
+        if self._nf_chaos_steps and not self._guard_on:
+            raise ValueError(
+                "chaos nonfinite_grad injection requires a nonfinite policy "
+                "(halt/skip/restore) — injecting NaNs with the guard off "
+                "just corrupts the run")
+        self.preempted = False
+        self._preempt_guard: Optional[PreemptionGuard] = None
+        self._rollback: Optional[Dict[str, torch.Tensor]] = None
+        self.nonfinite_skipped = 0       # run totals (each epoch's are
+        self.nonfinite_restored = 0      # logged after it)
+        self._epoch_nf = [0, 0]          # this epoch's skipped, restored
         self.device = resolve_device(device)
         if strat is strategies.local:
             if dist.is_initialized() and dist.get_world_size() > 1:
@@ -176,11 +215,16 @@ class Trainer:
         self.per_rank_batch = global_batch // self.world
         self.seed = seed
         self.augment = augment
+        self.model_name = model
+        self.strategy_name = strategy
+        self.compress_rank = compress_rank
+        self.sgd_cfg = sgd_cfg
         self.limit_train_batches = limit_train_batches
         self.limit_eval_batches = limit_eval_batches
         self.log = log if self.rank == 0 else _silent
 
-        self.train_split, self.test_split, _ = cifar10.load(data_dir)
+        self.train_split, self.test_split, self.real_data = \
+            cifar10.load(data_dir)
         # The script prints len(loader), the per-rank batch count; its test
         # loader takes the per-rank batch over the whole test set.
         per_rank_samples = -(-len(self.train_split.labels) // self.world)
@@ -195,7 +239,8 @@ class Trainer:
         dtype = self.compute_dtype
         self.train_step = steplib.make_train_step(
             net, strat, sgd_cfg, augment=augment, group=self.group,
-            seed=seed, compute_dtype=dtype)
+            seed=seed, compute_dtype=dtype, nonfinite_guard=self._guard_on,
+            nonfinite_chaos_steps=self._nf_chaos_steps)
         self.forward_step = steplib.make_forward_step(net, self.group, dtype)
         self.evaluate = steplib.make_eval_window(net, self.group, dtype)
         self.host_round_trips = 0
@@ -204,6 +249,9 @@ class Trainer:
         self._train_window: Optional[steplib.TrainWindow] = None
         self._fwd_window: Optional[steplib.FwdWindow] = None
         self.last_epoch_timers: Optional[WindowedTimers] = None
+        if self._nf_policy == "restore":
+            # "The last checkpoint" before any save is the initial state.
+            self._snapshot_rollback()
 
     # -- on-device staging --------------------------------------------------
 
@@ -304,57 +352,167 @@ class Trainer:
         self.host_round_trips += 1
         return t.cpu().numpy()
 
+    # -- fault tolerance (ft/) ----------------------------------------------
+
+    def _snapshot_rollback(self) -> None:
+        """Host copy of every tensor the step carries: the
+        ``--nonfinite=restore`` rollback target, refreshed after every
+        checkpoint save."""
+        self._rollback = {k: t.detach().to("cpu", copy=True) for k, t in
+                          steplib.named_state_tensors(self.state).items()}
+
+    def _restore_rollback(self) -> None:
+        live = steplib.named_state_tensors(self.state)
+        with torch.no_grad():
+            for k, t in live.items():
+                t.copy_(self._rollback[k])
+
+    def _handle_nonfinite(self, oks, epoch: int) -> None:
+        """The host's reaction to the fetched per-step ``ok`` flags.  The
+        on-device select already kept the prior state for every bad step;
+        this counts and applies the policy."""
+        oks = np.asarray(oks)
+        bad = int(oks.size - np.count_nonzero(oks))
+        if bad == 0:
+            return
+        if self._nf_policy == "halt":
+            raise NonFiniteError(
+                f"non-finite loss/grad-norm in epoch {epoch} "
+                f"(policy=halt; the bad update was NOT applied)")
+        if self._nf_policy == "skip":
+            self._epoch_nf[0] += bad
+            self.nonfinite_skipped += bad
+            return
+        # restore: the select already skipped the bad update; also rewind
+        # to the last checkpoint snapshot: the steps since it are lost
+        # (training goes on with the NEXT batch, not a replay).
+        self._epoch_nf[1] += bad
+        self.nonfinite_restored += bad
+        self._restore_rollback()
+        self.log(f"Non-finite step: state rolled back to the last "
+                 f"checkpoint snapshot (epoch {epoch})")
+
+    def _record_chaos(self, site: str, step: int) -> None:
+        self.log(f"chaos: injected {site} at step {step}")
+
+    def _check_preempt(self, epoch: int, step: int) -> None:
+        """Window-boundary preemption poll: fire a planned chaos SIGTERM
+        once progress reaches its step, then raise ``PreemptedError`` if a
+        signal has arrived (real or injected).  ``step`` is the number of
+        batches already trained this epoch: the resume point.  Each rank
+        polls its own flag; every rank holds the same plan, so a chaos
+        preemption stops them all at one boundary."""
+        if self.chaos.enabled and self.chaos.fire_reached("preempt", step):
+            if self._preempt_guard is None:
+                raise RuntimeError(
+                    "chaos preempt requires run(checkpoint_dir=...) — "
+                    "without the guard installed SIGTERM would kill the "
+                    "process uncheckpointed")
+            self._record_chaos("preempt", step)
+            os.kill(os.getpid(), signal.SIGTERM)
+        g = self._preempt_guard
+        if g is not None and g.requested:
+            raise PreemptedError(epoch, step)
+
+    def _step_fetch(self, x: torch.Tensor, y: torch.Tensor, epoch: int,
+                    idx: int) -> Tuple[float, Optional[float]]:
+        """One eager step; its loss and guard flag in ONE fetch."""
+        out = self.train_step.with_ok(self.state, x, y, epoch, idx)
+        if out.ok is None:
+            return float(self._fetch(out.loss)), None
+        loss, ok = self._fetch(torch.stack((out.loss,
+                                            out.ok.to(torch.float32))))
+        return float(loss), float(ok)
+
     # -- reference-parity loops ---------------------------------------------
 
-    def train_model(self, epoch: int) -> WindowedTimers:
+    def train_model(self, epoch: int, start_step: int = 0) -> WindowedTimers:
         """One training epoch with the reference's print/timing schedule.
 
         Windows of ``w = min(20 - start % 20, NB - start)`` steps, each
         timed up to its single fetch, which is also its fence; every step
         of a window is recorded at ``elapsed / w``.  Then the ragged tail
         as one eager step (``steady=False``).  ``profile_phases`` takes the
-        per-step path instead."""
+        per-step path instead.
+
+        ``start_step`` (mid-epoch resume) skips the first batches; the
+        windows realign to the absolute 20-step grid, so a resumed run
+        trains the same windows as an uninterrupted one."""
+        self._epoch_nf = [0, 0]
         if self.profile_phases:
-            return self._train_model_per_step(epoch)
+            timers = self._train_model_per_step(epoch, start_step)
+        else:
+            timers = self._train_model_windowed(epoch, start_step)
+        if any(self._epoch_nf):
+            self.log(f"Non-finite guard (epoch {epoch}): "
+                     f"{self._epoch_nf[0]} update(s) skipped, "
+                     f"{self._epoch_nf[1]} rollback(s)")
+        return timers
+
+    def _train_model_windowed(self, epoch: int,
+                              start_step: int) -> WindowedTimers:
         timers = WindowedTimers(self.log)
         staged = self._stage_train_epoch(epoch)
         window = self.train_window()
         nbatches = staged.images.shape[0]
-        start = 0
+        start = start_step
+        self._check_preempt(epoch, start)
         while start < nbatches:
             w = min(WINDOW - start % WINDOW, nbatches - start)
             t0 = time.time()
             fetched = self._fetch(window(epoch, start, w))
             per_iter = (time.time() - t0) / w
-            for loss in window.losses_of(fetched, start, w):
+            losses, oks = window.columns(fetched, start, w)
+            for loss in losses:
                 timers.record(float(loss), per_iter)
+            if self._nf_chaos_steps and \
+                    self.chaos.fire_range("nonfinite_grad", start, start + w):
+                self._record_chaos("nonfinite_grad", next(
+                    s for s in self._nf_chaos_steps if start <= s < start + w))
             start += w
-        if staged.tail is not None:
+            if oks is not None:
+                self._handle_nonfinite(oks, epoch)
+            self._check_preempt(epoch, start)
+        if staged.tail is not None and start_step <= nbatches:
             t0 = time.time()
-            loss = self._fetch(self.train_step(self.state, *staged.tail,
-                                               epoch, nbatches))
-            timers.record(float(loss), time.time() - t0, steady=False)
+            if self._nf_chaos_steps and \
+                    self.chaos.fire("nonfinite_grad", nbatches):
+                self._record_chaos("nonfinite_grad", nbatches)
+            loss, ok = self._step_fetch(*staged.tail, epoch, nbatches)
+            timers.record(loss, time.time() - t0, steady=False)
+            if ok is not None:
+                self._handle_nonfinite([ok], epoch)
         self.last_epoch_timers = timers
         return timers
 
-    def _train_model_per_step(self, epoch: int) -> WindowedTimers:
+    def _train_model_per_step(self, epoch: int,
+                              start_step: int = 0) -> WindowedTimers:
         """One eager step per batch, its loss fetched after it, and the
         forward-only program timed (and fetched) before it."""
         timers = WindowedTimers(self.log)
+        self._check_preempt(epoch, start_step)
         for it, (imgs, labs) in enumerate(_train_batches(
                 self.train_split, self.global_batch, epoch, self.seed,
                 self.world, self.rank)):
             if self.limit_train_batches is not None and \
                     it >= self.limit_train_batches:
                 break
+            if it < start_step:
+                continue
             x, y = self._to_device(imgs, labs)
             t0 = time.time()
             self._fetch(self.forward_step(x, y))
             fwd_time = time.time() - t0
+            if self._nf_chaos_steps and \
+                    self.chaos.fire("nonfinite_grad", it):
+                self._record_chaos("nonfinite_grad", it)
             t0 = time.time()
-            loss = self._fetch(self.train_step(self.state, x, y, epoch, it))
-            timers.record(float(loss), time.time() - t0, fwd_time,
+            loss, ok = self._step_fetch(x, y, epoch, it)
+            timers.record(loss, time.time() - t0, fwd_time,
                           steady=len(labs) == self.per_rank_batch)
+            if ok is not None:
+                self._handle_nonfinite([ok], epoch)
+            self._check_preempt(epoch, it + 1)
         self.last_epoch_timers = timers
         return timers
 
@@ -375,14 +533,195 @@ class Trainer:
                  .format(avg_loss, correct, n, acc))
         return avg_loss, correct, acc
 
-    def run(self, epochs: int = 1) -> None:
-        """Epochs of train + eval with the epoch timing line."""
-        for epoch in range(epochs):
-            t0 = time.time()
-            self.train_model(epoch)
-            self.log(f"Training time after {epoch + 1} epoch is "
-                     f"{time.time() - t0}")
-            self.test_model()
+    # -- checkpoints ---------------------------------------------------------
+
+    def checkpoint_config(self) -> dict:
+        """The run's identity, as the config guard compares it."""
+        return {
+            "model": self.model_name, "strategy": self.strategy_name,
+            "compress_rank": self.compress_rank, "seed": self.seed,
+            "precision": self.precision, "global_batch": self.global_batch,
+            "world": self.world, "augment": self.augment,
+            "reshuffle_each_epoch": False,
+            "lr": self.sgd_cfg.lr, "momentum": self.sgd_cfg.momentum,
+            "weight_decay": self.sgd_cfg.weight_decay,
+            "limit_train_batches": self.limit_train_batches,
+            "real_data": self.real_data,
+            "state_digest": state_digest(
+                steplib.named_state_tensors(self.state))}
+
+    def _epoch_meta(self, epoch: int) -> dict:
+        """The topology and data-order sidecar of every save."""
+        return {
+            "world": self.world, "global_batch": self.global_batch,
+            "seed": self.seed, "reshuffle_each_epoch": False,
+            "rank_keys": list(sharding.rank_data_keys(
+                len(self.train_split.labels), self.world, seed=self.seed,
+                epoch=epoch))}
+
+    def _data_order_meta(self, epoch: int, step: int) -> dict:
+        """The mid-epoch sidecar's ``data_order``."""
+        return {"seed": self.seed, "epoch": epoch, "step": step,
+                "reshuffle_each_epoch": False, **self._epoch_meta(epoch)}
+
+    def checkpoint_tensors(self) -> Dict[str, torch.Tensor]:
+        """What a save writes: a CPU copy of every tensor the step
+        carries, the comm state stacked over the ranks ``(world, ...)``.
+        A collective at world > 1 (every rank calls it); it goes to
+        ``torch.distributed`` directly, not through the counted
+        ``Group``."""
+        live = steplib.named_state_tensors(self.state)
+        comm = [k for k in live if k.startswith("comm/")]
+        out = {k: t.detach().to("cpu", copy=True) for k, t in live.items()
+               if k not in comm}
+        if not comm:
+            return out
+        if self.world == 1:
+            out.update((k, live[k].detach().to("cpu", copy=True)[None])
+                       for k in comm)
+            return out
+        flat = torch.cat([live[k].reshape(-1) for k in comm])
+        rows = [torch.empty_like(flat) for _ in range(self.world)]
+        dist.all_gather(rows, flat)
+        stacked = torch.stack(rows).cpu()
+        off = 0
+        for k in comm:
+            n = live[k].numel()
+            out[k] = stacked[:, off:off + n].reshape(
+                (self.world,) + tuple(live[k].shape)).clone()
+            off += n
+        return out
+
+    def load_checkpoint(self, tensors: Dict[str, torch.Tensor]) -> None:
+        """``copy_`` a checkpoint (``checkpoint_tensors``' layout; this
+        rank takes its row of the comm state) into the tensors the step
+        carries.  Raises, before writing anything, if it does not fit
+        them name for name, shape for shape and dtype for dtype."""
+        live = steplib.named_state_tensors(self.state)
+        if set(tensors) != set(live):
+            raise ValueError(
+                f"the checkpoint's tensors do not fit this Trainer's: "
+                f"missing {sorted(set(live) - set(tensors))}, unexpected "
+                f"{sorted(set(tensors) - set(live))}")
+        src = {}
+        for k, t in live.items():
+            v = tensors[k]
+            if k.startswith("comm/"):
+                if v.dim() == 0 or v.shape[0] != self.world:
+                    raise ValueError(f"{k}: {tuple(v.shape)} is not stacked "
+                                     f"over {self.world} rank(s)")
+                v = v[self.rank]
+            if v.shape != t.shape or v.dtype != t.dtype:
+                raise ValueError(f"{k}: the checkpoint holds {v.dtype}"
+                                 f"{list(v.shape)}, the Trainer "
+                                 f"{t.dtype}{list(t.shape)}")
+            src[k] = v
+        with torch.no_grad():
+            for k, t in live.items():
+                t.copy_(src[k])
+
+    def _save(self, mngr: CheckpointManager, epoch: int,
+              step: Optional[int] = None) -> None:
+        """An epoch save (``step`` None; it clears the mid-epoch save) or
+        an emergency save after ``step`` batches of ``epoch``.  Every rank
+        gathers, rank 0 writes, and every rank passes a barrier after the
+        write, so no rank goes on before the save exists."""
+        tensors = self.checkpoint_tensors()
+        if self.rank == 0:
+            if step is None:
+                mngr.save(epoch, tensors, meta=self._epoch_meta(epoch))
+                mngr.clear_mid_epoch()
+            else:
+                mngr.save_mid_epoch(epoch, step, tensors,
+                                    data_order=self._data_order_meta(
+                                        epoch, step))
+        if self.world > 1:
+            dist.barrier()
+
+    def _resume(self, mngr: CheckpointManager) -> Tuple[int, int]:
+        """Restore the newest save, if any: (start epoch, start step).  A
+        mid-epoch save outranks the epoch series only when it is AHEAD of
+        it (a crash between an epoch save and its clear leaves a stale
+        one behind)."""
+        n = len(self.train_split.labels)
+        mid, le = mngr.latest_mid_epoch(), mngr.latest_epoch()
+        if mid is not None and (le is None or mid[0] > le):
+            tensors, epoch, step = mngr.restore_mid_epoch()
+            validate_rank_keys(mngr.mid_epoch_meta(), n)
+            self.load_checkpoint(tensors)
+            self.log(f"Resumed from mid-epoch checkpoint: epoch {epoch}, "
+                     f"step {step}")
+            return epoch, step
+        if le is not None:
+            tensors, epoch = mngr.restore()
+            validate_rank_keys(mngr.epoch_meta(), n)
+            self.load_checkpoint(tensors)
+            self.log(f"Resumed from checkpoint: epoch {epoch}")
+            return epoch, 0
+        return 0, 0
+
+    def run(self, epochs: int = 1,
+            checkpoint_dir: Optional[str] = None) -> None:
+        """Epochs of train + eval with the epoch timing line.
+
+        With ``checkpoint_dir``: resume from its newest save (the config
+        guard refuses another run's directory), and save after every
+        epoch's eval.  While it runs (with a checkpoint dir or an ``ft``
+        config), SIGTERM/SIGINT request a stop at the next window
+        boundary: an emergency mid-epoch save (with a checkpoint dir), and
+        a return with ``self.preempted`` set; a later ``run`` on the same
+        directory resumes from that step, bitwise.  A SIGTERM to one rank
+        alone leaves its peers waiting at their next collective: a
+        scheduler signals every rank of a job."""
+        start_epoch, start_step = 0, 0
+        mngr = None
+        if checkpoint_dir is not None:
+            mngr = CheckpointManager(checkpoint_dir,
+                                     config=self.checkpoint_config())
+            start_epoch, start_step = self._resume(mngr)
+        if self._nf_policy == "restore":
+            self._snapshot_rollback()
+        try:
+            if mngr is not None or self.ft is not None:
+                self._preempt_guard = PreemptionGuard(log=self.log).install()
+            if start_epoch >= epochs:
+                self.log(f"All {epochs} epoch(s) already checkpointed; "
+                         f"nothing to run")
+            for epoch in range(start_epoch, epochs):
+                t0 = time.time()
+                try:
+                    self.train_model(epoch, start_step=start_step)
+                except PreemptedError as e:
+                    self.preempted = True
+                    if mngr is not None:
+                        self._save(mngr, e.epoch, e.step)
+                        self.log(f"Preempted at epoch {e.epoch} step "
+                                 f"{e.step}; emergency checkpoint saved")
+                    else:
+                        self.log(f"Preempted at epoch {e.epoch} step "
+                                 f"{e.step}; no checkpoint dir — progress "
+                                 f"since the last save is lost")
+                    return
+                start_step = 0
+                self.log(f"Training time after {epoch + 1} epoch is "
+                         f"{time.time() - t0}")
+                self.test_model()
+                if mngr is not None:
+                    self._save(mngr, epoch)
+                    if self._nf_policy == "restore":
+                        self._snapshot_rollback()
+                if self._preempt_guard is not None and \
+                        self._preempt_guard.requested:
+                    # The signal landed during eval or the save: the epoch
+                    # boundary just saved is the resume point.
+                    self.preempted = True
+                    self.log(f"Preemption requested; stopping after epoch "
+                             f"{epoch} completed")
+                    return
+        finally:
+            if self._preempt_guard is not None:
+                self._preempt_guard.uninstall()
+                self._preempt_guard = None
 
     # -- measurement ----------------------------------------------------------
 

@@ -17,7 +17,13 @@ replay of it (``GraphStep``); on the CPU the same body runs eagerly (gloo
 collectives cannot be captured).  Everything the step carries across steps
 is updated in place: the parameters and momentum (``ops/sgd.py``), the BN
 running statistics (``copy_`` in the modules), a compressed strategy's
-residuals and Q factors (``copy_comm``).
+residuals and Q factors (``copy_comm``).  So a restore (a checkpoint, a
+mid-epoch resume, a rollback) ``copy_``s into those same tensors.
+
+The non-finite guard (``nonfinite_guard``, ``ft/guard.py``) is part of the
+body, so the window, the per-step path and the eager tail step share it:
+its flag ``ok`` stays on the device, and the window writes it into the
+ring's ``ok`` column (or a per-batch ``oks`` vector when the ring is off).
 
 Mixed precision (``compute_dtype=torch.bfloat16``, the reference's
 ``compute_dtype``): every program casts its input after the transform,
@@ -43,6 +49,7 @@ import torch.distributed as dist
 import torch.nn as nn
 
 from ..data import augment as aug
+from ..ft import guard as ftguard
 from ..obs import ringbuf
 from ..ops import sgd
 from ..ops.loss import cross_entropy, masked_eval_counts
@@ -62,6 +69,14 @@ class TrainState(NamedTuple):
     opt_state: sgd.SGDState   # momentum buffers, a strategy's comm state
 
 
+class StepOut(NamedTuple):
+    """What the step body returns, all on the device, nothing fetched."""
+    loss: torch.Tensor                    # 0-d, meaned over the ranks
+    grads: Sequence[torch.Tensor]         # the post-sync gradients
+    ok: Optional[torch.Tensor]            # 0-d bool; None: guard off
+    grad_sqnorm: Optional[torch.Tensor]   # ok's squared norm; None: off
+
+
 def init_train_state(model: nn.Module, strategy=None) -> TrainState:
     """A STATEFUL ``strategy`` (the compressed tiers) adds this rank's comm
     state to ``SGDState.comm``; the others leave it None."""
@@ -71,17 +86,30 @@ def init_train_state(model: nn.Module, strategy=None) -> TrainState:
     return TrainState(model, opt)
 
 
-def state_tensors(state: TrainState) -> List[torch.Tensor]:
-    """Every tensor the step carries from one step to the next: parameters,
-    buffers (BN running statistics), momentum, comm state."""
+def named_state_tensors(state: TrainState) -> Dict[str, torch.Tensor]:
+    """Every tensor the step carries from one step to the next, by name:
+    ``model/<name>`` for the parameters and buffers (BN running
+    statistics), ``momentum/<parameter>``, and a stateful strategy's
+    ``comm/residual/<parameter>`` and ``comm/q/<parameter>``.  The live
+    tensors, not copies."""
     model, opt = state
-    out = [t.detach() for t in list(model.parameters())
-           + list(model.buffers())]
-    out += list(opt.momentum)
+    names = [n for n, _ in model.named_parameters()]
+    out = {f"model/{n}": t.detach() for n, t in model.named_parameters()}
+    out.update((f"model/{n}", b) for n, b in model.named_buffers())
+    out.update((f"momentum/{n}", v)
+               for n, v in zip(names, opt.momentum, strict=True))
     if opt.comm is not None:
-        out += list(opt.comm["residual"]) + list(opt.comm.get("q", {})
-                                                 .values())
+        out.update((f"comm/residual/{n}", r)
+                   for n, r in zip(names, opt.comm["residual"], strict=True))
+        out.update((f"comm/q/{n}", q)
+                   for n, q in opt.comm.get("q", {}).items())
     return out
+
+
+def state_tensors(state: TrainState) -> List[torch.Tensor]:
+    """``named_state_tensors``' tensors: parameters, buffers, momentum,
+    comm state."""
+    return list(named_state_tensors(state).values())
 
 
 @contextlib.contextmanager
@@ -106,19 +134,24 @@ def apply_strategy(strategy, grads, group: Group, comm):
 
 
 @torch.no_grad()
-def copy_comm(comm: Dict, new_comm: Dict) -> None:
+def copy_comm(comm: Dict, new_comm: Dict,
+              ok: Optional[torch.Tensor] = None) -> None:
     """Write a stateful strategy's new comm state into ``comm``'s own
-    tensors.  The strategies return fresh tensors; a captured step must
-    find its state at the addresses it was captured with, so the step
-    copies instead of rebinding."""
-    for r, new in zip(comm["residual"], new_comm["residual"], strict=True):
-        r.copy_(new)
-    if "q" in comm:
-        if comm["q"].keys() != new_comm["q"].keys():
-            raise ValueError("the strategy returned Q factors for other "
-                             "parameters than the comm state holds")
-        for name, q in comm["q"].items():
-            q.copy_(new_comm["q"][name])
+    tensors (where ``ok``, a 0-d bool device tensor, when given).  The
+    strategies return fresh tensors; a captured step must find its state
+    at the addresses it was captured with, so the step copies instead of
+    rebinding."""
+    if "q" in comm and comm["q"].keys() != new_comm["q"].keys():
+        raise ValueError("the strategy returned Q factors for other "
+                         "parameters than the comm state holds")
+    pairs = list(zip(comm["residual"], new_comm["residual"], strict=True))
+    pairs += [(q, new_comm["q"][name])
+              for name, q in comm.get("q", {}).items()]
+    for old, new in pairs:
+        if ok is None:
+            old.copy_(new)
+        else:
+            torch.where(ok, new, old, out=old)
 
 
 def prepare(images_u8: torch.Tensor, augment: bool, key: int,
@@ -172,8 +205,10 @@ def make_step_body(model: nn.Module, strategy=strategies.local,
                    cfg: sgd.SGDConfig = sgd.SGDConfig(), *,
                    augment: bool = True, group: Optional[Group] = None,
                    seed: int = 0,
-                   compute_dtype: Optional[torch.dtype] = None) -> Callable:
-    """body(state, images_u8, labels, epoch, idx) -> (loss, grads): one
+                   compute_dtype: Optional[torch.dtype] = None,
+                   nonfinite_guard: bool = False,
+                   nonfinite_chaos_steps: Tuple[int, ...] = ()) -> Callable:
+    """body(state, images_u8, labels, epoch, idx) -> ``StepOut``: one
     train step on this rank's rows, ``epoch`` and ``idx`` int64 0-d
     tensors on the model's device that key the augmentation draws.
     ``compute_dtype`` (None: f32) is the activations' dtype; parameters,
@@ -183,7 +218,19 @@ def make_step_body(model: nn.Module, strategy=strategies.local,
     state in place and returns the loss (meaned over the ranks, a 0-d
     tensor, not synchronised) and the post-sync gradients.  No value goes
     to the host.  ``group.step_counts`` holds the step's strategy
-    collectives afterwards."""
+    collectives afterwards.
+
+    ``nonfinite_guard``: also return ``ok`` (finite loss and post-sync
+    gradient norm) and its squared norm, and update only where ``ok``
+    (``ft/guard.py``); the buffers are restored where not.
+    ``nonfinite_chaos_steps``: absolute batch indices at which NaN is
+    added to this rank's gradients before the strategy (the overlap tier
+    launches its buckets from inside backward, so there after it);
+    needs the guard.  ``body.guard`` is the ``StepGuard``, None when the
+    guard is off."""
+    if nonfinite_chaos_steps and not nonfinite_guard:
+        raise ValueError("NaN injection (nonfinite_chaos_steps) needs the "
+                         "non-finite guard")
     params = list(model.parameters())
     single = strategy is strategies.local
     if single and group is not None and group.world != 1:
@@ -197,34 +244,58 @@ def make_step_body(model: nn.Module, strategy=strategies.local,
         if hasattr(strategy, "attach") else None
     key = _stream_key(seed, group)
     norm = aug.channel_stats(_device_of(model))
+    guard = None
+    if nonfinite_guard:
+        guard = ftguard.StepGuard(list(model.buffers()), params,
+                                  nonfinite_chaos_steps)
 
     def body(state: TrainState, images_u8: torch.Tensor,
-             labels: torch.Tensor, epoch: torch.Tensor, idx: torch.Tensor):
+             labels: torch.Tensor, epoch: torch.Tensor,
+             idx: torch.Tensor) -> StepOut:
+        if guard is not None:
+            guard.save(state.opt_state)
         x = prepare(images_u8, augment, key, epoch, idx, norm,
                     compute_dtype)
         model.train()
         loss = cross_entropy(model(x), labels)
+        comm = new_comm = None
         if single:
             grads = torch.autograd.grad(loss, params)
-            sgd.update(params, grads, state.opt_state, cfg)
-            return loss.detach(), grads
-        group.reset_step()
-        if overlap is not None:
-            overlap.begin()
-            torch.autograd.grad(loss, params)
-            grads = overlap.finish()
+            if guard is not None:
+                guard.inject(grads, idx)
+            loss = loss.detach()
         else:
-            grads = list(torch.autograd.grad(loss, params))
-            comm = state.opt_state.comm
-            grads, new_comm = apply_strategy(strategy, grads, group, comm)
+            group.reset_step()
+            if overlap is not None:
+                overlap.begin()
+                torch.autograd.grad(loss, params)
+                grads = overlap.finish()
+                if guard is not None:
+                    guard.inject(grads, idx)
+            else:
+                grads = list(torch.autograd.grad(loss, params))
+                if guard is not None:
+                    guard.inject(grads, idx)
+                comm = state.opt_state.comm
+                grads, new_comm = apply_strategy(strategy, grads, group,
+                                                 comm)
+            loss = loss.detach().reshape(1)
+            with torch.no_grad():
+                mean_over_ranks(list(stats) + [loss], group.world)
+            loss = loss[0]
+        if guard is None:
             if new_comm is not None:
                 copy_comm(comm, new_comm)
-        sgd.update(params, grads, state.opt_state, cfg)
-        loss = loss.detach().reshape(1)
-        with torch.no_grad():
-            mean_over_ranks(list(stats) + [loss], group.world)
-        return loss[0], grads
+            sgd.update(params, grads, state.opt_state, cfg)
+            return StepOut(loss, grads, None, None)
+        gsq = grad_sqnorm(grads)
+        ok = ftguard.finite_ok(loss, gsq)
+        if new_comm is not None:
+            copy_comm(comm, new_comm, ok)
+        guard.update(params, grads, state.opt_state, cfg, ok)
+        return StepOut(loss, grads, ok, gsq)
 
+    body.guard = guard
     return body
 
 
@@ -232,24 +303,35 @@ def make_train_step(model: nn.Module, strategy=strategies.local,
                     cfg: sgd.SGDConfig = sgd.SGDConfig(), *,
                     augment: bool = True,
                     group: Optional[Group] = None, seed: int = 0,
-                    compute_dtype: Optional[torch.dtype] = None
+                    compute_dtype: Optional[torch.dtype] = None,
+                    nonfinite_guard: bool = False,
+                    nonfinite_chaos_steps: Tuple[int, ...] = ()
                     ) -> Callable:
     """step(state, images_u8 [B,32,32,3], labels [B], epoch=0, idx=0) ->
     loss: ``make_step_body`` on a batch the caller hands over, ``epoch``
     and ``idx`` (ints or int64 0-d device tensors) keying the augmentation.
-    ``step.body`` is the body, for a window that shares it."""
+    ``step.body`` is the body, for a window that shares it;
+    ``step.with_ok`` returns the body's whole ``StepOut``."""
     body = make_step_body(model, strategy, cfg, augment=augment,
                           group=group, seed=seed,
-                          compute_dtype=compute_dtype)
+                          compute_dtype=compute_dtype,
+                          nonfinite_guard=nonfinite_guard,
+                          nonfinite_chaos_steps=nonfinite_chaos_steps)
+
+    def with_ok(state: TrainState, images_u8: torch.Tensor,
+                labels: torch.Tensor, epoch: Index = 0, idx: Index = 0
+                ) -> StepOut:
+        dev = images_u8.device
+        return body(state, images_u8, labels, _index(epoch, dev),
+                    _index(idx, dev))
 
     def step(state: TrainState, images_u8: torch.Tensor,
              labels: torch.Tensor, epoch: Index = 0, idx: Index = 0
              ) -> torch.Tensor:
-        dev = images_u8.device
-        return body(state, images_u8, labels, _index(epoch, dev),
-                    _index(idx, dev))[0]
+        return with_ok(state, images_u8, labels, epoch, idx).loss
 
     step.body = body
+    step.with_ok = with_ok
     return step
 
 
@@ -432,12 +514,14 @@ class TrainWindow(_Window):
     trains the staged batches ``start .. start + w - 1`` of ``epoch`` and
     returns, without synchronising, the device tensor the host drains once:
     the metric ring's buffer (``ring_capacity`` > 0; one (loss, grad
-    sqnorm, ok, marker) row per step) or the window's losses.
+    sqnorm, ok, marker) row per step) or the window's losses (with the
+    guard on, stacked over its ``oks``).
 
     ``body`` is ``make_step_body``'s (the per-step path's own, so the two
     share the step and its hooks).  Each step reads its batch at the device
     index, runs the body, writes its row, and advances the index: on the
-    card, one replay of the captured step."""
+    card, one replay of the captured step.  ``ok`` is the body's guard
+    flag, 1.0 when the guard is off."""
 
     def __init__(self, body: Callable, state: TrainState,
                  images: torch.Tensor, labels: torch.Tensor, *,
@@ -445,45 +529,67 @@ class TrainWindow(_Window):
                  ring_capacity: int = ringbuf.DEFAULT_CAPACITY):
         self.body = body
         self.state = state
+        self.guarded = getattr(body, "guard", None) is not None
         self.ring = ringbuf.Ring(ring_capacity, images.device) \
             if ring_capacity else None
         super().__init__(images, labels, group)
+        # The guard's flags when no ring holds them: one slot per batch.
+        self.oks = torch.ones_like(self.losses) \
+            if self.guarded and self.ring is None else None
 
     def tensors(self) -> List[torch.Tensor]:
         ring = [] if self.ring is None else [self.ring.buf, self.ring.count]
-        return state_tensors(self.state) + super().tensors() + ring
+        oks = [] if self.oks is None else [self.oks]
+        return state_tensors(self.state) + super().tensors() + ring + oks
 
     def _step(self) -> None:
-        loss, grads = self.body(self.state, *self._batch(), self.epoch,
-                                self.idx)
+        out = self.body(self.state, *self._batch(), self.epoch, self.idx)
         with torch.no_grad():
             if self.ring is not None:
-                self.ring.write((loss, grad_sqnorm(grads), 1.0, self.idx))
+                gsq = out.grad_sqnorm if out.grad_sqnorm is not None \
+                    else grad_sqnorm(out.grads)
+                self.ring.write((out.loss, gsq,
+                                 1.0 if out.ok is None else out.ok,
+                                 self.idx))
             else:
-                self._record_loss(loss)
+                if self.oks is not None:
+                    self.oks.index_copy_(0, self.pos.reshape(1),
+                                         out.ok.to(torch.float32)
+                                         .reshape(1))
+                self._record_loss(out.loss)
             self.idx.add_(1)
 
     def __call__(self, epoch: int, start: int, w: int) -> torch.Tensor:
         self._run(epoch, start, w)
         if self.ring is None:
+            if self.oks is not None:
+                return torch.stack((self.losses[:w], self.oks[:w]))
             return self.losses[:w]
         self.ring.writes += w
         return self.ring.buf
+
+    def columns(self, fetched, start: int, w: int):
+        """(losses, oks) of the window of ``w`` steps from batch
+        ``start``, from the host copy of what ``__call__`` returned: the
+        guard's flags (1.0 finite, 0.0 not), None when it is off."""
+        if self.ring is None:
+            if self.oks is None:
+                return fetched, None
+            return fetched[0], fetched[1]
+        loss, _, ok, steps = ringbuf.split_columns(
+            ringbuf.drain_rows(fetched, self.ring.writes, w))
+        if not np.array_equal(steps, np.arange(start, start + w)):
+            raise RuntimeError(f"the ring holds the rows of batches "
+                               f"{steps.tolist()}, not of the window's "
+                               f"{start}..{start + w - 1}")
+        return loss, ok if self.guarded else None
 
     def losses_of(self, fetched, start: int, w: int):
         """The losses of the window of ``w`` steps from batch ``start``, in
         step order, from the host copy of what ``__call__`` returned.  The
         ring's markers must be the window's batch indices: a step that did
         not run on the device leaves a row out."""
-        if self.ring is None:
-            return fetched
-        loss, _, _, steps = ringbuf.split_columns(
-            ringbuf.drain_rows(fetched, self.ring.writes, w))
-        if not np.array_equal(steps, np.arange(start, start + w)):
-            raise RuntimeError(f"the ring holds the rows of batches "
-                               f"{steps.tolist()}, not of the window's "
-                               f"{start}..{start + w - 1}")
-        return loss
+        return self.columns(fetched, start, w)[0]
 
 
 class FwdWindow(_Window):

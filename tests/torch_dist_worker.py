@@ -24,6 +24,16 @@ once for all of them):
     Trainer's windowed path and by its per-step path (``profile_phases``)
     on the fixture data, augmentation on; writes both states (parameters,
     buffers, momentum, comm residuals), losses and collective counts.
+  * ``resume``     — for each named strategy, with ``loop.WINDOW`` set to
+    ``window``: one uninterrupted epoch of a narrow VGG (``run(1)``); the
+    same epoch preempted by the chaos plan's ``preempt`` site into a
+    checkpoint directory; and a fresh Trainer resumed from it; writes the
+    uninterrupted and the resumed states, the state at the save, the save's
+    (epoch, step) and the log lines;
+  * ``guard``      — for each named strategy, a narrow VGG trained under
+    ``--nonfinite skip`` with NaN gradients planned at batch ``bad``;
+    writes the ring's rows, the skipped count and whether the state is
+    finite.
 
 ``start`` starts the ranks; ``Ranks.wait`` waits for them, killing them
 at the time limit.
@@ -238,9 +248,81 @@ def task_window(task: dict, group, rank: int, outdir: str) -> None:
     np.savez(os.path.join(outdir, f"window_r{rank}.npz"), **results)
 
 
+def task_resume(task: dict, group, rank: int, outdir: str) -> None:
+    from cs744_ddp_tpu_torch.ft import ChaosPlan, FTConfig
+    from cs744_ddp_tpu_torch.models import vgg
+    from cs744_ddp_tpu_torch.ops.sgd import SGDConfig
+    from cs744_ddp_tpu_torch.train import loop
+    from cs744_ddp_tpu_torch.train.checkpoint import CheckpointManager
+    from cs744_ddp_tpu_torch.train.step import state_tensors
+
+    vgg.CFG["VGGT"] = NARROW_VGG
+    loop.WINDOW = task["window"]
+    results = {}
+    for name in task["strategies"]:
+        def trainer(log=lambda s: None, ft=None):
+            return loop.Trainer(
+                "vggt", name, global_batch=task["global_batch"],
+                data_dir=ASSETS, device="cpu",
+                sgd_cfg=SGDConfig(lr=task["lr"]),
+                limit_train_batches=task["steps"], limit_eval_batches=1,
+                log=log, ft=ft)
+
+        ck = os.path.join(task["dir"], name)
+        lines: List[str] = []
+        base = trainer()
+        base.run(1)
+        cut = trainer(lines.append, FTConfig(
+            chaos=ChaosPlan.parse([f"preempt:{task['preempt']}"])))
+        cut.run(1, checkpoint_dir=ck)
+        at_save = [t.clone() for t in state_tensors(cut.state)]
+        results[f"{name}/saved_at"] = np.array(
+            CheckpointManager(ck).latest_mid_epoch())
+        resumed = trainer(lines.append)
+        resumed.run(1, checkpoint_dir=ck)
+        results[f"{name}/preempted"] = np.array(
+            [cut.preempted, resumed.preempted])
+        for path, tensors in (("base", state_tensors(base.state)),
+                              ("resumed", state_tensors(resumed.state)),
+                              ("at_save", at_save)):
+            for i, t in enumerate(tensors):
+                results[f"{name}/{path}/{i}"] = t.contiguous().numpy()
+        results[f"{name}/log"] = np.array(lines)
+    np.savez(os.path.join(outdir, f"resume_r{rank}.npz"), **results)
+
+
+def task_guard(task: dict, group, rank: int, outdir: str) -> None:
+    import torch
+    from cs744_ddp_tpu_torch.ft import ChaosPlan, FTConfig
+    from cs744_ddp_tpu_torch.models import vgg
+    from cs744_ddp_tpu_torch.obs import ringbuf
+    from cs744_ddp_tpu_torch.ops.sgd import SGDConfig
+    from cs744_ddp_tpu_torch.train.loop import Trainer
+    from cs744_ddp_tpu_torch.train.step import state_tensors
+
+    vgg.CFG["VGGT"] = NARROW_VGG
+    results = {}
+    for name in task["strategies"]:
+        tr = Trainer("vggt", name, global_batch=task["global_batch"],
+                     data_dir=ASSETS, device="cpu",
+                     sgd_cfg=SGDConfig(lr=task["lr"]),
+                     limit_train_batches=task["steps"], log=lambda s: None,
+                     ft=FTConfig(nonfinite="skip", chaos=ChaosPlan.parse(
+                         [f"nonfinite_grad:{task['bad']}"])))
+        tr.train_model(0)
+        ring = tr.train_window().ring
+        results[f"{name}/rows"] = ringbuf.drain_rows(
+            ring.buf.numpy(), ring.writes, task["steps"])
+        results[f"{name}/skipped"] = np.array(tr.nonfinite_skipped)
+        results[f"{name}/finite"] = np.array(all(
+            bool(torch.isfinite(t.float()).all())
+            for t in state_tensors(tr.state)))
+    np.savez(os.path.join(outdir, f"guard_r{rank}.npz"), **results)
+
+
 TASKS = {"strategies": task_strategies, "step": task_step,
          "counts": task_counts, "single": task_single,
-         "window": task_window}
+         "window": task_window, "resume": task_resume, "guard": task_guard}
 
 
 def main() -> None:
