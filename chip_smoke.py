@@ -117,8 +117,28 @@ Phases, in order; any failure exits non-zero:
                --checkpoint-dir D --chaos preempt:25``, then the same
                command again: every rank's ``--save`` bitwise equal to an
                uninterrupted 2-rank run's;
-  8. report  — the ``kernels`` JSON line (each kernel in f32, with the
-               main path's runs, and in bf16, with the VGG-11 bf16 path's),
+  8. host    — ``--host-augment`` on VGG-11 ``single``, batch 256, full
+               width, ``host_chunks`` 4: the native loader built from
+               ``native/fastloader.cpp`` and loaded; one whole epoch
+               through ``run(1)`` (195 windowed steps from chunk-staged
+               C++-augmented buffers, the 80-row tail as one eager f32
+               step, 5 eval batches): falling losses, each kernel run 5
+               times a step on the device, at most windows + 2 host round
+               trips, each window's chunk_wait; the device's idle share
+               over a 60-step host epoch (``torch.profiler``); with
+               deterministic cuDNN, 40 windowed steps bitwise equal to 40
+               per-step f32 steps and to ``host_chunks`` 1, the window
+               buffer's sha256 on the card equal to the CPU's
+               ``gather_augment_u8`` stream and its normalize on the card
+               equal to ``native.augment``'s f32; ``put_fail``,
+               ``producer_crash`` once (a restart) and twice (degraded) and
+               ``corrupt_slot`` with ``verify_chunks`` over 60 steps, each
+               bitwise the healthy run; and the steady step of the
+               host-augment and the device-augment windowed paths, f32 and
+               bf16, whole 100-step epochs in turns;
+  9. report  — the ``kernels`` JSON line (each kernel in f32, with the
+               main path's runs, and in bf16, with the VGG-11 bf16 path's;
+               ``launches_by_path`` also holds the host path's runs),
                the card's name and power limit, and as the last line
                ``{"ok": true, "device": {...}}``.
 
@@ -181,6 +201,9 @@ CHECK_SHAPES = SHAPES + [(n, c, h, w) for n in (BATCH // 2, BATCH // 4)
 RAGGED = (129, 96, 6, 6)
 TRAIN_STEPS = 40
 FT_STEPS = 60                   # phase ft: three 20-step windows
+HOST_STEPS = 40                 # phase host: the bitwise path checks
+HOST_FT_STEPS = 60              # phase host: staging chaos
+HOST_TIME_STEPS = 100           # phase host: timing, steps 21-100 steady
 EVAL_FT = 2
 EPOCH_ROWS = 50000              # the training split: 195 batches + 80 rows
 EVAL_BATCHES = 5
@@ -1480,6 +1503,263 @@ def ft_world2(card_line):
           f"equal to an uninterrupted run's  ok  [{card_line}]")
 
 
+def host_trainer(steps, precision="f32", **kw):
+    """A fresh VGG-11 ``single`` Trainer of phase host: ``--host-augment``,
+    ``steps`` augmented batches, ``host_chunks`` 4 unless given."""
+    from cs744_ddp_tpu_torch.train.loop import Trainer
+    kw = {"host_augment": True, "host_chunks": 4, **kw}
+    return Trainer(model="vgg11", strategy="single", precision=precision,
+                   global_batch=BATCH, augment=True,
+                   limit_train_batches=steps, log=lambda s: None, **kw)
+
+
+def idle_share(run):
+    """(device idle share of the wall time, wall s) while ``run()`` trains
+    and fetches, from ``torch.profiler``: busy is the union of the device
+    records other than host-to-device copies (the copy engines run beside
+    the kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from cs744_ddp_tpu_torch.utils.profile_step import busy_us
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "HtoD" not in e.name]
+    check(bool(spans), "the profiler recorded no device work")
+    return 1 - busy_us(spans) / wall_us, wall_us / 1e6
+
+
+def window_stream_digest(trainer, epoch, start, w):
+    """(sha256 of the window buffer's rows 0..w-1 on the card, sha256 of
+    the same batches from ``native.gather_augment_u8`` on the CPU, the
+    card's affine normalize of those rows equal to ``native.augment``'s
+    f32 bit for bit)."""
+    import hashlib
+    from cs744_ddp_tpu_torch.data import augment as aug, native
+    window = trainer.train_window()
+    got = window.images[:w]
+    cols = list(trainer._rank_cols(epoch))[start:start + w]
+    split = trainer.train_split
+    want = np.stack([native.gather_augment_u8(
+        split.images, c, *trainer._host_rank_params(len(c), epoch, start + i))
+        for i, c in enumerate(cols)])
+    f32 = np.stack([native.augment(
+        split.images[c], *trainer._host_rank_params(len(c), epoch, start + i))
+        for i, c in enumerate(cols)])
+    on_card = aug.normalize_affine(got, aug.affine_stats(got.device)).cpu()
+    same_f32 = torch.equal(on_card, torch.from_numpy(f32))
+    return (hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16],
+            hashlib.sha256(want.tobytes()).hexdigest()[:16], same_f32)
+
+
+def host_step_times(card_line, precision):
+    """The steady step (steps 21-``HOST_TIME_STEPS``, ms) of the
+    device-augment windowed path and of the host windowed path, VGG-11
+    ``single`` in ``precision``, each Trainer warmed by one epoch, then
+    timed in turns (device, host, host, device) over whole epochs, the
+    host's producer started anew each epoch as in training."""
+    from cs744_ddp_tpu_torch.train.loop import Trainer
+    pair = {"device": Trainer(model="vgg11", strategy="single",
+                              precision=precision, global_batch=BATCH,
+                              augment=True,
+                              limit_train_batches=HOST_TIME_STEPS,
+                              log=lambda s: None),
+            "host": host_trainer(HOST_TIME_STEPS, precision)}
+    for tr in pair.values():
+        tr.train_model(0)
+    from cs744_ddp_tpu_torch.ops import bnpool
+    ms = {"device": [], "host": []}
+    waits = []
+    for i, which in enumerate(("device", "host", "host", "device")):
+        bnpool.reset_launch_counts()
+        timers = pair[which].train_model(1 + i)
+        torch.cuda.synchronize()
+        ms[which].append(steady(timers)[0])
+        if which == "host":
+            waits.append(pair["host"].last_chunk_waits)
+            runs = bnpool.executed_counts()
+            check(runs == variants(precision, 5 * HOST_TIME_STEPS),
+                  f"vgg11 {precision} host windowed: kernel runs {runs}, "
+                  f"want 5 a step")
+    dev, host = statistics.mean(ms["device"]), statistics.mean(ms["host"])
+    print(f"[host] vgg11 {precision} single, steady step (steps 21-"
+          f"{HOST_TIME_STEPS}, whole epochs in turns device, host, host, "
+          f"device): device-augment windowed {dev:.4f} ms "
+          f"({ms['device'][0]:.4f}, {ms['device'][1]:.4f}), host-augment "
+          f"windowed {host:.4f} ms "
+          f"({ms['host'][0]:.4f}, {ms['host'][1]:.4f}); host / device "
+          f"{host / dev:.4f}; chunk_wait per window (s) "
+          f"{[[round(v, 6) for v in w] for w in waits]}; kernel runs "
+          f"of a host epoch {runs}  [{card_line}]")
+    return runs
+
+
+def phase_host(card_line):
+    """The host-augment path; see the module docstring.  Returns each
+    path's kernel runs."""
+    import torch.distributed as dist
+    from cs744_ddp_tpu_torch.data import native
+    from cs744_ddp_tpu_torch.ft import ChaosPlan, FTConfig
+    from cs744_ddp_tpu_torch.ops import bnpool
+    from cs744_ddp_tpu_torch.train.loop import Trainer
+    from cs744_ddp_tpu_torch.train.step import state_tensors
+
+    check(not dist.is_initialized(), "a process group exists already")
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    native.load_library()
+    print(f"[host] native loader: {native.library_path().name} built from "
+          f"native/fastloader.cpp and loaded in "
+          f"{time.perf_counter() - t0:.2f} s (fl_version "
+          f"{native.EXPECTED_VERSION})  [{card_line}]")
+    paths = {}
+
+    # 1. One whole epoch, as `--host-augment` trains it.
+    trainer = Trainer(model="vgg11", strategy="single", global_batch=BATCH,
+                      augment=True, limit_eval_batches=EVAL_BATCHES,
+                      host_augment=True, host_chunks=4, log=lambda s: None)
+    bnpool.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.run(1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    runs, launches = kernel_counts()
+    full, tail_rows = divmod(EPOCH_ROWS, BATCH)
+    steps = full + 1
+    losses = trainer.last_epoch_timers.losses
+    first, second = check_losses("host single", losses, steps)
+    check_runs("host single, windowed epoch", runs, launches, steps, full)
+    windows = -(-full // WINDOW)
+    check(trainer.host_round_trips <= windows + 2,
+          f"host: {trainer.host_round_trips} host round trips for "
+          f"{windows} windows, the tail and an eval")
+    check(len(trainer.last_chunk_waits) == windows,
+          f"host: {len(trainer.last_chunk_waits)} chunk waits")
+    step_ms, ips = steady(trainer.last_epoch_timers)
+    paths["host single/window (epoch)"] = runs
+    h2d = WINDOW * BATCH * (32 * 32 * 3 + 8)
+    print(f"[host] --host-augment windowed path: one epoch, {full} steps in "
+          f"{windows} windows of graph replays from chunk-staged C++-"
+          f"augmented buffers (4 chunks a window, {h2d} bytes to the card a "
+          f"window) + the ragged tail of {tail_rows} rows as one eager f32 "
+          f"step + {EVAL_BATCHES} eval batches in {wall:.2f} s; mean loss "
+          f"{first:.4f} (steps 1-20) -> {second:.4f} (21-40); kernel runs "
+          f"counted on the device {runs}, wrapper launches {launches}; host "
+          f"round trips {trainer.host_round_trips}; steady step "
+          f"{step_ms:.3f} ms, {ips:.1f} images/s  [{card_line}]")
+    phases = {k: round(v, 4)
+              for k, v in trainer.last_producer_times.items()}
+    print(f"[host] chunk_wait per window (s): "
+          f"{[round(v, 6) for v in trainer.last_chunk_waits]}; the "
+          f"producer's seconds by phase: {phases}  [{card_line}]")
+    del trainer
+
+    # 2. The device's idle share over an epoch of three windows, the
+    # window already captured, the producer started anew as every epoch.
+    tr = host_trainer(HOST_FT_STEPS)
+    tr.train_model(0)
+    idle, wall = idle_share(lambda: tr.train_model(1))
+    print(f"[host] device idle share over a {HOST_FT_STEPS}-step host "
+          f"windowed epoch (capture done; the producer starts with the "
+          f"epoch): {100 * idle:.1f}% of {wall:.3f} s; chunk_wait per window "
+          f"(s) {[round(v, 6) for v in tr.last_chunk_waits]}  [{card_line}]")
+    del tr
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        # 3. Windowed = per-step, chunks 4 = 1, the stream on the card.
+        win = host_trainer(HOST_STEPS)
+        bnpool.reset_launch_counts()
+        win.train_model(0)
+        paths["host single/window"] = bnpool.executed_counts()
+        bnpool.reset_launch_counts()
+        per = host_trainer(HOST_STEPS, profile_phases=True)
+        per.train_model(0)
+        paths["host single/per-step"] = bnpool.executed_counts()
+        check(paths["host single/per-step"] == variants("f32",
+                                                        5 * HOST_STEPS),
+              f"host per-step: kernel runs {paths['host single/per-step']}")
+        one = host_trainer(HOST_STEPS, host_chunks=1)
+        one.train_model(0)
+        for label, other in (("per-step path", per), ("host_chunks 1", one)):
+            check(win.last_epoch_timers.losses ==
+                  other.last_epoch_timers.losses,
+                  f"host windowed vs {label}: losses differ")
+            a, b = state_tensors(win.state), state_tensors(other.state)
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"host windowed vs {label}: state differs")
+        per_ms, per_ips = steady(per.last_epoch_timers)
+        print(f"[host] per-step host path (--profile-phases, f32 batches "
+              f"made and copied on the producer thread): steady step "
+              f"{per_ms:.3f} ms, {per_ips:.1f} images/s (steps 21-"
+              f"{HOST_STEPS}, deterministic cuDNN); host round trips "
+              f"{per.host_round_trips}  [{card_line}]")
+        print(f"[bitwise] host: {HOST_STEPS} windowed steps (host_chunks 4) "
+              f"bitwise equal to {HOST_STEPS} per-step f32 steps and to "
+              f"host_chunks 1 ({len(a)} tensors and the losses; "
+              f"deterministic cuDNN); per-step kernel runs "
+              f"{paths['host single/per-step']}  ok  [{card_line}]")
+        got, want, same_f32 = window_stream_digest(win, 0, WINDOW, WINDOW)
+        check(got == want, f"host stream: the card's window buffer sha256 "
+              f"{got}, the CPU's gather_augment_u8 {want}")
+        check(same_f32, "host stream: the card's affine normalize of the "
+              "window differs from native.augment's f32")
+        print(f"[host] stream on the card: the window buffer of batches "
+              f"{WINDOW}-{2 * WINDOW - 1} sha256 {got} = the CPU "
+              f"gather_augment_u8 stream's; its normalize on the card equals "
+              f"native.augment's f32 bit for bit  ok  [{card_line}]")
+        del win, per, one
+
+        # 4. Staging chaos, each bitwise the healthy run.
+        healthy = host_trainer(HOST_FT_STEPS)
+        healthy.train_model(0)
+        # (spec, FTConfig fields, producer failures, degraded, a log line)
+        cases = (("put_fail:25", {"backoff_base_s": 0.001}, 0, False,
+                  "retrying with backoff"),
+                 ("producer_crash:30", {}, 1, False, "restarting the "
+                  "producer from step 20"),
+                 ("producer_crash:30,producer_crash:30", {}, 2, True,
+                  "degrading to synchronous"),
+                 ("corrupt_slot:33", {"verify_chunks": True}, 0, False,
+                  "staged batch 33 failed its checksum"))
+        for spec, kw, failures, degraded, line in cases:
+            lines = []
+            tr = host_trainer(HOST_FT_STEPS, ft=FTConfig(
+                chaos=ChaosPlan.parse(spec.split(",")), **kw))
+            tr.log = lines.append
+            tr.train_model(0)
+            check(tr.producer_failures == failures
+                  and tr.staging_degraded == degraded
+                  and any(line in ln for ln in lines),
+                  f"chaos {spec}: producer failures {tr.producer_failures},"
+                  f" degraded {tr.staging_degraded}, log {lines}")
+            check(tr.last_epoch_timers.losses ==
+                  healthy.last_epoch_timers.losses,
+                  f"chaos {spec}: losses differ from the healthy run")
+            check_same_state(f"chaos {spec}", tr, healthy)
+            print(f"[host] chaos {spec}: producer failures "
+                  f"{tr.producer_failures}, degraded {tr.staging_degraded}; "
+                  f"{HOST_FT_STEPS} steps bitwise equal to the healthy run; "
+                  f"log {[ln for ln in lines if 'ft:' in ln or 'chaos' in ln]}"
+                  f"  ok  [{card_line}]")
+            del tr
+        del healthy
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # 5. Host against device augmentation, f32 and bf16, in turns.
+    host_step_times(card_line, "f32")
+    paths["host vgg11 bf16 single/window"] = host_step_times(card_line,
+                                                             "bf16")
+    print(f"[host] phase host: {time.perf_counter() - t_phase:.1f} s  "
+          f"[{card_line}]")
+    return paths
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--time-only", action="store_true",
@@ -1521,6 +1801,7 @@ def main(argv=None) -> int:
     (bf16_runs, bf16_launches), model_paths = phase_models(card_line)
     by_path.update(model_paths)
     by_path.update(phase_ft(card_line))
+    by_path.update(phase_host(card_line))
 
     replaces = {"bnpool_sums": "cs744_ddp_tpu/ops/bnpool_pallas.py:147",
                 "bnpool_dx": "cs744_ddp_tpu/ops/bnpool_pallas.py:184"}
@@ -1552,9 +1833,12 @@ def main(argv=None) -> int:
           f"{TRAIN_STEPS} windowed steps), wrapper_launches the wrappers' "
           f"host count there (eager launches and the capture), "
           f"launches_by_path each path's runs of that variant, counted on "
-          f"the device for each dtype apart (the others {TRAIN_STEPS} "
-          f"steps; window: 3 warm-up steps and graph replays, per-step: "
-          f"eager); the bf16 max_abs_err of dx is over the elements "
+          f"the device for each dtype apart (the paths' steps in their "
+          f"names, else {TRAIN_STEPS}; host paths: the epoch's 195 steps "
+          f"and tail, {HOST_STEPS} steps, and a captured {HOST_TIME_STEPS}-"
+          f"step bf16 epoch; window: 3 warm-up steps and graph replays, "
+          f"per-step: eager); the bf16 max_abs_err of dx is over the "
+          f"elements "
           f"outside the near-tie routing flips that phase 2 bounds")
     print(json.dumps({"kernels": kernels}))
     print(card_line)

@@ -11,6 +11,8 @@ GPU, with the reference training script's print schedule.
     # save every epoch, resume on the rerun; SIGTERM saves mid-epoch:
     python -m cs744_ddp_tpu_torch.cli --epochs 3 --checkpoint-dir ckpt
     python -m cs744_ddp_tpu_torch.cli --nonfinite skip --chaos nonfinite_grad:30
+    # the crop/flip in the C++ host pipeline, staging supervised:
+    python -m cs744_ddp_tpu_torch.cli --host-augment --chaos producer_crash:30
     # one process per node, the reference's launch:
     python -m cs744_ddp_tpu_torch.cli --master HOST --num-nodes 2 --rank 0
 
@@ -31,6 +33,13 @@ uninterrupted run (with ``--deterministic`` on the card).  A SIGTERM to
 one rank of a multi-rank run alone leaves the others waiting at their
 next collective: signal every rank.  ``--nonfinite`` guards every step
 against a NaN/Inf loss or gradient; ``--chaos`` injects faults.
+
+``--host-augment`` runs the random crop and flip in the C++ host pipeline
+(``native/fastloader.cpp``, built into ``build/kernels/`` at first use; a
+failed build raises): a producer thread stages each window's uint8
+batches through pinned memory in chunks, copied to the card while the
+previous window trains.  The ``--ft-*`` flags supervise that staging.
+``--require-real-data`` refuses the synthetic stand-in.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ import torch
 import torch.distributed as dist
 
 from .device import resolve_device
+from .data import cifar10, native
 from .ft import FTConfig, POLICIES, ChaosPlan, check_sites
 from .models import get_model
 from .ops import _build
@@ -92,6 +102,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--weight-decay", type=float, default=1e-4)
     p.add_argument("--no-augment", action="store_true",
                    help="normalize only: no random crop/flip")
+    p.add_argument("--host-augment", action="store_true",
+                   help="run the train transform in the C++ host pipeline "
+                        "(data/native.py, the reference's DataLoader-worker "
+                        "model), staged as uint8 window buffers and "
+                        "trained as windows of graph replays (per-batch "
+                        "f32 under --profile-phases); default keeps the "
+                        "transform on the device")
     p.add_argument("--profile-phases", action="store_true",
                    help="the per-step path: one eager step per batch, its "
                         "loss fetched, with a forward-only program timed "
@@ -111,6 +128,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--limit-train-batches", type=int, default=None)
     p.add_argument("--limit-eval-batches", type=int, default=None)
     p.add_argument("--data-dir", default="./data")
+    p.add_argument("--require-real-data", action="store_true",
+                   help="fail loudly if --data-dir holds no real CIFAR-10 "
+                        "pickle batches instead of silently training on the "
+                        "deterministic synthetic fallback (the right mode "
+                        "for any run whose accuracy numbers will be read "
+                        "as CIFAR-10 results)")
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")
     p.add_argument("--save", default=None, metavar="DIR",
@@ -140,20 +163,41 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "at that batch; requires --nonfinite other than "
                         "off) or preempt (SIGTERM at the first window "
                         "boundary at or after it; requires "
-                        "--checkpoint-dir)")
+                        "--checkpoint-dir); with --host-augment also the "
+                        "staging sites producer_crash, put_delay, "
+                        "put_fail and corrupt_slot")
+    p.add_argument("--ft-put-timeout", type=float, default=30.0,
+                   metavar="SECONDS",
+                   help="watchdog deadline on each staged chunk device_put")
+    p.add_argument("--ft-put-retries", type=int, default=3,
+                   help="attempts per chunk device_put (exponential "
+                        "backoff between attempts)")
+    p.add_argument("--ft-stall-timeout", type=float, default=120.0,
+                   metavar="SECONDS",
+                   help="consumer-side staging stall deadline; exceeding "
+                        "it triggers producer restart, then degraded "
+                        "synchronous staging (stream bit-identical)")
+    p.add_argument("--ft-verify-chunks", action="store_true",
+                   help="checksum every staged batch at fill time and "
+                        "re-stage any row whose bytes changed by transfer "
+                        "time (auto-enabled by corrupt_slot chaos)")
     return p.parse_args(argv)
 
 
 def ft_config_from_args(args: argparse.Namespace) -> Optional[FTConfig]:
-    """FTConfig when the guard or a chaos plan is asked for, else None
-    (the Trainer's ft=None path: no guard built).  Refuses, as the
-    reference does, NaN injection without a guard and a chaos preemption
-    without a checkpoint directory, and any site the port cannot fire."""
-    if args.nonfinite == "off" and not args.chaos:
+    """FTConfig when any fault-tolerance flag is set, else None (the
+    Trainer's ft=None path: no guard built, staging unsupervised).
+    Refuses, as the reference does, NaN injection without a guard and a
+    chaos preemption without a checkpoint directory, and any site the
+    Trainer would not fire (a staging site needs --host-augment)."""
+    if (args.nonfinite == "off" and not args.chaos
+            and args.ft_put_timeout == 30.0 and args.ft_put_retries == 3
+            and args.ft_stall_timeout == 120.0
+            and not args.ft_verify_chunks):
         return None
     try:
         plan = ChaosPlan.parse(args.chaos)
-        check_sites(plan)
+        check_sites(plan, args.host_augment)
     except ValueError as e:
         raise SystemExit(str(e)) from None
     if plan.steps("nonfinite_grad") and args.nonfinite == "off":
@@ -161,7 +205,11 @@ def ft_config_from_args(args: argparse.Namespace) -> Optional[FTConfig]:
                          "halt, skip or restore")
     if plan.steps("preempt") and args.checkpoint_dir is None:
         raise SystemExit("--chaos preempt requires --checkpoint-dir")
-    return FTConfig(nonfinite=args.nonfinite, chaos=plan)
+    return FTConfig(nonfinite=args.nonfinite, chaos=plan,
+                    put_timeout_s=args.ft_put_timeout,
+                    put_retries=args.ft_put_retries,
+                    stall_timeout_s=args.ft_stall_timeout,
+                    verify_chunks=args.ft_verify_chunks)
 
 
 def _train(args: argparse.Namespace) -> None:
@@ -177,7 +225,7 @@ def _train(args: argparse.Namespace) -> None:
         limit_train_batches=args.limit_train_batches,
         limit_eval_batches=args.limit_eval_batches,
         profile_phases=args.profile_phases, metrics_ring=args.metrics_ring,
-        ft=ft_config_from_args(args))
+        ft=ft_config_from_args(args), host_augment=args.host_augment)
     trainer.run(args.epochs, checkpoint_dir=args.checkpoint_dir)
     if args.save and not trainer.preempted:
         os.makedirs(args.save, exist_ok=True)
@@ -202,6 +250,12 @@ def _spawned_rank(local: int, args: argparse.Namespace) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
+    if args.require_real_data and not cifar10.has_real_data(args.data_dir):
+        raise SystemExit(
+            f"--require-real-data: no CIFAR-10 pickle batches under "
+            f"{args.data_dir!r} (expected "
+            f"{args.data_dir}/cifar-10-batches-py/data_batch_*); "
+            "refusing to fall back to the synthetic stand-in")
     get_model(args.model)     # an unknown name fails here, not in each rank
     ft_config_from_args(args)     # so does a refused fault-tolerance config
     if args.num_devices is None:
@@ -224,6 +278,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             raise SystemExit(f"--num-devices {args.num_devices}: only "
                              f"{torch.cuda.device_count()} GPUs present")
         _build.build()      # once here, not once per rank
+    if args.host_augment:
+        native.build()
     torch.multiprocessing.spawn(_spawned_rank, args=(args,),
                                 nprocs=args.num_devices, join=True)
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .cifar10 import MEAN, STD
@@ -39,6 +40,31 @@ def channel_stats(device) -> Tuple[torch.Tensor, torch.Tensor]:
     copy cannot be captured."""
     return (torch.from_numpy(MEAN).to(device),
             torch.from_numpy(STD).to(device))
+
+
+# The C++ host pipeline's normalize (native/fastloader.cpp) is the affine
+# x * SCALE + BIAS, with SCALE and BIAS rounded to f32 as it rounds them.
+# It differs from ``normalize``'s (x/255 - mean)/std by at most an ulp.
+AFFINE_SCALE = (np.float32(1.0) / (np.float32(255.0) * STD)).astype(
+    np.float32)
+AFFINE_BIAS = (-MEAN / STD).astype(np.float32)
+
+
+def affine_stats(device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scale, bias) per channel of ``normalize_affine`` as f32 tensors on
+    ``device``, made beforehand as ``channel_stats`` are."""
+    return (torch.from_numpy(AFFINE_SCALE).to(device),
+            torch.from_numpy(AFFINE_BIAS).to(device))
+
+
+def normalize_affine(images_u8: torch.Tensor,
+                     stats: Tuple[torch.Tensor, torch.Tensor]
+                     ) -> torch.Tensor:
+    """uint8 [.,32,32,3] -> float32 x * scale + bias, rounded after the
+    product and after the sum: bit for bit the C++ host pipeline's f32
+    output (``data/native.py::augment`` and ``normalize``)."""
+    scale, bias = stats
+    return images_u8.to(torch.float32).mul(scale).add(bias)
 
 
 def normalize(images_u8: torch.Tensor,

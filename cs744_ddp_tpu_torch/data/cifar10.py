@@ -101,10 +101,17 @@ def _synthetic_split(n: int, seed: int) -> Split:
     return Split(images, labels)
 
 
+def has_real_data(data_dir: str = "./data") -> bool:
+    """Would ``load`` find the real python-pickle batches here?  The one
+    check that ``load`` and ``--require-real-data`` (cli.py) share, so the
+    flag can never disagree with what ``load`` does."""
+    return os.path.isdir(os.path.join(data_dir, "cifar-10-batches-py"))
+
+
 def load(data_dir: str = "./data") -> Tuple[Split, Split, bool]:
     """Return (train, test, is_real)."""
-    batch_dir = os.path.join(data_dir, "cifar-10-batches-py")
-    if os.path.isdir(batch_dir):
+    if has_real_data(data_dir):
+        batch_dir = os.path.join(data_dir, "cifar-10-batches-py")
         train = _load_pickle_batches(
             batch_dir, [f"data_batch_{i}" for i in range(1, 6)])
         test = _load_pickle_batches(batch_dir, ["test_batch"])

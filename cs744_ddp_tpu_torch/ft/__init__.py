@@ -1,17 +1,21 @@
-"""Fault tolerance: the chaos plan, the non-finite step guard and
-preemption-safe mid-epoch resume (the reference package's ``ft/``).
+"""Fault tolerance: the chaos plan, the non-finite step guard,
+preemption-safe mid-epoch resume and the supervision of the host-augment
+staging pipeline (the reference package's ``ft/``).
 
 Everything is opt-in through one ``FTConfig`` handed to ``Trainer``; the
 default (``ft=None``) leaves every hot path as it is without it: the chaos
-plan is the stateless ``NULL_CHAOS`` and the guard is not built into the
-step.
+plan is the stateless ``NULL_CHAOS``, the guard is not built into the
+step and the staging puts run unsupervised.
 
-The reference's staging supervision (``ft/supervisor.py``, the
-``producer_crash``, ``put_delay``, ``put_fail`` and ``corrupt_slot``
-sites, the ``put_*`` / ``stall_timeout_s`` / ``verify_chunks`` fields)
-needs the host loader, and its rank, replica and publish sites need the
-elastic, serving and publishing layers; none is ported yet, and the
-Trainer refuses a plan that names their sites (``check_sites``).
+The staging sites (``producer_crash``, ``put_delay``, ``put_fail``,
+``corrupt_slot``) and the ``put_*`` / ``stall_timeout_s`` /
+``producer_restarts`` / ``verify_chunks`` / ``degrade_staging`` fields act
+on the chunked host-augment pipeline (``train/loop.py``,
+``ft/supervisor.py``), so a plan that names a staging site is refused on a
+Trainer without ``host_augment``, where the reference would never fire it.
+The rank, replica and publish sites need the elastic, serving and
+publishing layers, which are not ported yet: the Trainer refuses a plan
+that names them (``check_sites``).
 """
 
 from __future__ import annotations
@@ -22,13 +26,15 @@ from .chaos import (NULL_CHAOS, PUBLISH_SITES, RANK_SITES, REPLICA_SITES,
                     ChaosError, ChaosPlan, NullChaos, RankDeathError, SITES)
 from .guard import POLICIES, NonFiniteError
 from .preempt import PreemptedError, PreemptionGuard
+from .supervisor import (StagingStalled, Watchdog, batch_checksums,
+                         call_with_retry, verify_checksums)
 
+# The sites that fire on the host-augment staging pipeline only.
+STAGING_SITES = ("producer_crash", "put_delay", "put_fail", "corrupt_slot")
 # The sites the port's Trainer fires.
-FIRED_SITES = ("nonfinite_grad", "preempt")
+FIRED_SITES = STAGING_SITES + ("nonfinite_grad", "preempt")
 # Every other site, by the ROADMAP queue 1 item that brings its layer.
 _LATER = {
-    **dict.fromkeys(("producer_crash", "put_delay", "put_fail",
-                     "corrupt_slot"), "queue 1 item 2 (the host loader)"),
     **dict.fromkeys(RANK_SITES + ("coordinator_loss",),
                     "queue 1 item 3 (elastic)"),
     **dict.fromkeys(REPLICA_SITES + PUBLISH_SITES,
@@ -38,30 +44,57 @@ _LATER = {
 
 class FTConfig(NamedTuple):
     """Fault-tolerance knobs, with the reference's field names and
-    defaults.
+    defaults (production-shaped; tests shrink the timeouts).
 
-    nonfinite : "off" | "halt" | "skip" | "restore" step-guard policy.
-    chaos     : ChaosPlan (or NULL_CHAOS) of deterministic injections.
+    nonfinite         : "off" | "halt" | "skip" | "restore" step-guard policy.
+    chaos             : ChaosPlan (or NULL_CHAOS) of deterministic injections.
+    put_timeout_s     : watchdog deadline for one chunk's host-to-device copy
+                        (and the arena fence wait); overruns are logged, not
+                        interrupted.
+    put_retries       : total attempts for a failing chunk put.
+    backoff_base_s    : exponential backoff base between put retries.
+    stall_timeout_s   : consumer-side deadline with no staged item arriving
+                        while the producer looks alive -> treated as a
+                        producer failure (restart once, then degrade).
+    producer_restarts : producer restart attempts before degrading to the
+                        synchronous per-batch staging path.
+    verify_chunks     : crc32-verify staged rows right before each put
+                        (on by itself when the chaos plan corrupts slots).
+    degrade_staging   : start in the degraded synchronous staging mode
+                        (measures the fallback).
     """
 
     nonfinite: str = "off"
     chaos: Any = NULL_CHAOS
+    put_timeout_s: float = 30.0
+    put_retries: int = 3
+    backoff_base_s: float = 0.05
+    stall_timeout_s: float = 120.0
+    producer_restarts: int = 1
+    verify_chunks: bool = False
+    degrade_staging: bool = False
 
 
-def check_sites(chaos) -> None:
-    """Refuse a plan that names a site the port cannot fire yet: it would
-    be accepted and then never fire."""
+def check_sites(chaos, host_augment: bool = False) -> None:
+    """Refuse a plan that names a site the Trainer would not fire: one the
+    port has not ported yet, or a staging site without ``host_augment``.
+    Either would be accepted and then never fire."""
     for entry in chaos.spec():
         site = entry["site"]
         if site not in FIRED_SITES:
             raise ValueError(
                 f"chaos site {site!r} is not ported yet: it comes with "
                 f"ROADMAP {_LATER[site]}; the port fires {FIRED_SITES}")
+        if site in STAGING_SITES and not host_augment:
+            raise ValueError(
+                f"chaos site {site!r} fires on the host-augment staging "
+                f"pipeline only: it needs host_augment (--host-augment)")
 
 
 __all__ = [
     "FTConfig", "ChaosPlan", "ChaosError", "NullChaos", "NULL_CHAOS", "SITES",
     "PUBLISH_SITES", "RANK_SITES", "REPLICA_SITES", "RankDeathError",
-    "FIRED_SITES", "check_sites", "POLICIES", "NonFiniteError",
-    "PreemptedError", "PreemptionGuard",
+    "FIRED_SITES", "STAGING_SITES", "check_sites", "POLICIES",
+    "NonFiniteError", "PreemptedError", "PreemptionGuard", "StagingStalled",
+    "Watchdog", "call_with_retry", "batch_checksums", "verify_checksums",
 ]

@@ -2,10 +2,10 @@
 
 A copy of the reference package's ``ft/chaos.py``, with the same sites,
 spec grammar and ``rng`` draws, so that one spec means the same faults in
-both packages.  The port's ``Trainer`` fires ``nonfinite_grad`` and
-``preempt``; it refuses a plan that names any other site
-(``ft.check_sites``), since the layers those sites exercise are not
-ported yet.
+both packages.  The port's ``Trainer`` fires ``nonfinite_grad``,
+``preempt`` and, with ``host_augment``, the four staging sites; it
+refuses a plan that names any other site (``ft.check_sites``), since the
+layers those sites exercise are not ported yet.
 
 A chaos plan is a list of ``(site, step, seed)`` entries — parsed from CLI
 specs ``SITE:step[:seed]`` or built programmatically — that fire EXACTLY

@@ -32,25 +32,42 @@
     window's one fetch and acted on by the policy; the chaos plan's
     ``nonfinite_grad`` and ``preempt`` sites.  A restore ``copy_``s into
     the tensors the captured step holds: ``self.state`` is never rebound.
+  * ``host_augment=True`` moves the crop/flip to the C++ host pipeline
+    (``data/native.py``; the reference script's DataLoader workers): a
+    producer thread gathers and augments each batch into a pinned arena
+    slot, copies it to a device chunk on a copy stream, and the window
+    trains from one window buffer the chunks are assembled into
+    (``_train_model_host_windowed``); the per-step path and the ragged
+    tail take f32 host-normalized batches.  The crop/flip stream is the
+    reference's ``np.random.default_rng([seed, epoch, it])`` over the
+    global batch, each rank taking its rows, so every host path trains the
+    same bits.  Under an ``FTConfig`` the staging is supervised: retried
+    puts, a watchdog, checksums, a stall deadline, a producer restart and
+    then a degraded synchronous mode (``ft/supervisor.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import queue
+from collections import Counter
 import signal
+import threading
 import time
-from typing import (Callable, Dict, Iterator, NamedTuple, Optional, Tuple,
-                    Union)
+from typing import (Callable, Dict, Iterator, List, NamedTuple, Optional,
+                    Tuple, Union)
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from .. import models as model_zoo
-from ..data import cifar10, sharding
+from ..data import cifar10, native, sharding
 from ..device import resolve_device, set_f32_parity
-from ..ft import (NULL_CHAOS, FTConfig, NonFiniteError, POLICIES,
+from ..ft import (NULL_CHAOS, ChaosError, FTConfig, NonFiniteError, POLICIES,
                   PreemptedError, PreemptionGuard, check_sites)
+from ..ft import supervisor as ftsup
 from ..obs import ringbuf
 from ..ops import sgd
 from ..parallel import Group, get_strategy, initialize_distributed
@@ -66,16 +83,30 @@ STRATEGIES = tuple(strategies.STRATEGIES)
 PRECISIONS = {"f32": None, "bf16": torch.bfloat16}
 
 
+def _rank_batch_cols(n_examples: int, global_batch: int, epoch: int,
+                     seed: int, world: int = 1, rank: int = 0,
+                     reshuffle_each_epoch: bool = False
+                     ) -> Iterator[np.ndarray]:
+    """Rank ``rank``'s example indices of each of the epoch's global
+    batches in sampler order (the reference package's
+    ``_shard_batch_cols``, this rank's block of each); the last may be
+    short."""
+    per = global_batch // world
+    idx = sharding.global_epoch_indices(
+        n_examples, world, seed=seed, epoch=epoch,
+        reshuffle_each_epoch=reshuffle_each_epoch)[rank]
+    for start in range(0, len(idx), per):
+        yield idx[start:start + per]
+
+
 def _train_batches(split: cifar10.Split, global_batch: int, epoch: int,
-                   seed: int, world: int = 1, rank: int = 0
+                   seed: int, world: int = 1, rank: int = 0,
+                   reshuffle_each_epoch: bool = False
                    ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """Rank ``rank``'s rows of the epoch's global batches in sampler order;
     the last one may be short."""
-    per = global_batch // world
-    idx = sharding.global_epoch_indices(len(split.labels), world, seed=seed,
-                                        epoch=epoch)[rank]
-    for start in range(0, len(idx), per):
-        cols = idx[start:start + per]
+    for cols in _rank_batch_cols(len(split.labels), global_batch, epoch,
+                                 seed, world, rank, reshuffle_each_epoch):
         yield split.images[cols], split.labels[cols]
 
 
@@ -122,6 +153,74 @@ class StagedEpoch(NamedTuple):
     tail: Optional[Tuple[torch.Tensor, torch.Tensor]]   # the ragged batch
 
 
+class Chunk(NamedTuple):
+    """A staged chunk of ``k`` consecutive batches from absolute batch
+    ``lo``; ``last`` closes a window.  Its rows are in ``slot`` of the
+    device chunks once ``ready`` (the copy stream's event; None on the
+    CPU) has passed, or, ``slot`` None (the degraded mode), in the host
+    arrays ``host``."""
+    k: int
+    lo: int
+    last: bool
+    slot: Optional[int]
+    ready: Optional[torch.cuda.Event]
+    host: Optional[Tuple[np.ndarray, np.ndarray]] = None
+
+
+class ChunkSlots:
+    """The device side of the staging arena: for each arena slot, a device
+    chunk (images ``[cap, b, 32, 32, 3]`` uint8, labels ``[cap, b]``
+    int64) and a host label buffer (pinned on the card), all allocated
+    here, before any capture.
+
+    A slot is lent to the producer (``claim``) and given back by the
+    consumer once a window's assembly has read its device chunk
+    (``release``, with the event recorded after the assembly, which the
+    copy stream waits on before it writes the chunk again).  The arena
+    hands slots out in turn and fences their host memory; this is what
+    keeps a producer that has run ahead from overwriting a device chunk
+    the consumer has not assembled yet."""
+
+    def __init__(self, nslots: int, cap: int, batch: int,
+                 device: torch.device):
+        pin = device.type == "cuda"
+        self.images = [torch.empty((cap, batch, 32, 32, 3),
+                                   dtype=torch.uint8, device=device)
+                       for _ in range(nslots)]
+        self.labels = [torch.empty((cap, batch), dtype=torch.int64,
+                                   device=device) for _ in range(nslots)]
+        self.host_labels = [torch.empty((cap, batch), dtype=torch.int64,
+                                        pin_memory=pin)
+                            for _ in range(nslots)]
+        self._free = [threading.Event() for _ in range(nslots)]
+        self._after: List[Optional[torch.cuda.Event]] = [None] * nslots
+        self.release_all()
+
+    def claim(self, slot: int, stop: threading.Event) -> bool:
+        """Wait until ``slot`` is free and lend it; False if ``stop`` was
+        set first."""
+        while not self._free[slot].wait(0.05):
+            if stop.is_set():
+                return False
+        self._free[slot].clear()
+        return True
+
+    def after(self, slot: int) -> Optional[torch.cuda.Event]:
+        """The event the copy stream waits on before writing ``slot``'s
+        device chunk (None: nothing read it yet)."""
+        return self._after[slot]
+
+    def release(self, slot: int, after: Optional[torch.cuda.Event]) -> None:
+        self._after[slot] = after
+        self._free[slot].set()
+
+    def release_all(self) -> None:
+        """Free every slot (no producer runs): a window given up, or an
+        iterator closed, leaves no slot lent."""
+        for ev in self._free:
+            ev.set()
+
+
 class Trainer:
     """Data + model + strategy on this process's rank.
 
@@ -140,9 +239,15 @@ class Trainer:
     weights, gradients, optimizer and comm state, BN statistics and
     loss).
 
-    ``ft``: the fault-tolerance config (None: no guard, no chaos; the
-    step is built as without it).  Its plan may name only the sites the
-    port fires (``ft.check_sites``)."""
+    ``ft``: the fault-tolerance config (None: no guard, no chaos, no
+    staging supervision; the step is built as without it).  Its plan may
+    name only the sites the port fires (``ft.check_sites``).
+
+    ``host_augment``: the C++ host pipeline crops and flips (see the
+    module docstring), each window staged in ``host_chunks`` chunks.
+    ``reshuffle_each_epoch``: another sampler order every epoch (the
+    reference script keeps one order).  Both as the reference's
+    ``Trainer`` takes them."""
 
     def __init__(self, model: str = "vgg11", strategy: str = "allreduce", *,
                  precision: str = "f32",
@@ -156,7 +261,11 @@ class Trainer:
                  profile_phases: bool = False,
                  metrics_ring: Optional[int] = None,
                  log: Callable[[str], None] = print,
-                 ft: Optional[FTConfig] = None):
+                 ft: Optional[FTConfig] = None,
+                 host_augment: bool = False, host_chunks: int = 4,
+                 reshuffle_each_epoch: bool = False):
+        if host_chunks < 1:
+            raise ValueError(f"host_chunks must be >= 1, got {host_chunks}")
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of "
                              f"{sorted(PRECISIONS)}, got {precision!r}")
@@ -174,7 +283,16 @@ class Trainer:
         # Fault tolerance: ft=None keeps every hot path as without it.
         self.ft = ft
         self.chaos = ft.chaos if ft is not None else NULL_CHAOS
-        check_sites(self.chaos)
+        check_sites(self.chaos, host_augment)
+        self.host_augment = host_augment
+        self.host_chunks = int(host_chunks)
+        self.reshuffle_each_epoch = reshuffle_each_epoch
+        # Staging supervision, as the reference's: on with any FTConfig.
+        self._supervise = ft is not None
+        self._verify_chunks = bool(ft is not None and (
+            ft.verify_chunks or self.chaos.steps("corrupt_slot")))
+        self.staging_degraded = bool(ft is not None and ft.degrade_staging)
+        self.producer_failures = 0
         self._nf_policy = ft.nonfinite if ft is not None else "off"
         if self._nf_policy not in POLICIES:
             raise ValueError(f"nonfinite policy must be one of {POLICIES}, "
@@ -237,18 +355,37 @@ class Trainer:
             self.device, memory_format=torch.channels_last)
         self.state = steplib.init_train_state(net, strat)
         dtype = self.compute_dtype
+        step_kw = dict(group=self.group, seed=seed, compute_dtype=dtype,
+                       nonfinite_guard=self._guard_on,
+                       nonfinite_chaos_steps=self._nf_chaos_steps)
+        # With host_augment the per-step path and the ragged tail take the
+        # host pipeline's f32 batches, and the window its uint8 ones.
         self.train_step = steplib.make_train_step(
-            net, strat, sgd_cfg, augment=augment, group=self.group,
-            seed=seed, compute_dtype=dtype, nonfinite_guard=self._guard_on,
-            nonfinite_chaos_steps=self._nf_chaos_steps)
-        self.forward_step = steplib.make_forward_step(net, self.group, dtype)
+            net, strat, sgd_cfg, augment="host" if host_augment else augment,
+            **step_kw)
+        self._host_window_body = steplib.make_step_body(
+            net, strat, sgd_cfg, augment="host_u8", **step_kw) \
+            if host_augment else None
+        self.forward_step = steplib.make_forward_step(
+            net, self.group, dtype, augment="host" if host_augment else False)
         self.evaluate = steplib.make_eval_window(net, self.group, dtype)
         self.host_round_trips = 0
         self._staged_train = None       # (cache key, StagedEpoch)
         self._staged_eval = None
         self._train_window: Optional[steplib.TrainWindow] = None
         self._fwd_window: Optional[steplib.FwdWindow] = None
+        # The host path's staging (made at its first use, before the
+        # producer starts and the window is captured).
+        self._copy_stream = torch.cuda.Stream(self.device) \
+            if host_augment and self.device.type == "cuda" else None
+        self._staging_arena: Optional[native.StagingArena] = None
+        self._chunk_slots: Optional[ChunkSlots] = None
+        self._producer: Optional[threading.Thread] = None
         self.last_epoch_timers: Optional[WindowedTimers] = None
+        # The last host windowed epoch: seconds the consumer waited for
+        # each window's chunks, and the producer's seconds by phase.
+        self.last_chunk_waits: List[float] = []
+        self.last_producer_times: Counter = Counter()
         if self._nf_policy == "restore":
             # "The last checkpoint" before any save is the initial state.
             self._snapshot_rollback()
@@ -269,8 +406,8 @@ class Trainer:
         window's addresses hold."""
         split = self.train_split
         order = sharding.global_epoch_indices(
-            len(split.labels), self.world, seed=self.seed,
-            epoch=epoch)[self.rank]
+            len(split.labels), self.world, seed=self.seed, epoch=epoch,
+            reshuffle_each_epoch=self.reshuffle_each_epoch)[self.rank]
         key = (id(split), order.tobytes())
         if self._staged_train is not None and self._staged_train[0] == key:
             return self._staged_train[1]
@@ -329,13 +466,23 @@ class Trainer:
         return self._staged_train[1]
 
     def train_window(self) -> steplib.TrainWindow:
-        """The window over the staged buffers (made at its first use)."""
+        """The window over the staged buffers (made at its first use);
+        with ``host_augment``, over the host path's window buffer."""
         if self._train_window is None:
-            staged = self._staged_buffers()
+            if self.host_augment:
+                per = self.per_rank_batch
+                images = torch.empty((WINDOW, per, 32, 32, 3),
+                                     dtype=torch.uint8, device=self.device)
+                labels = torch.zeros((WINDOW, per), dtype=torch.int64,
+                                     device=self.device)
+                body, buffered = self._host_window_body, True
+            else:
+                staged = self._staged_buffers()
+                images, labels = staged.images, staged.labels
+                body, buffered = self.train_step.body, False
             self._train_window = steplib.TrainWindow(
-                self.train_step.body, self.state, staged.images,
-                staged.labels, group=self.group,
-                ring_capacity=self.metrics_ring)
+                body, self.state, images, labels, group=self.group,
+                ring_capacity=self.metrics_ring, buffered=buffered)
         return self._train_window
 
     def fwd_window(self) -> steplib.FwdWindow:
@@ -348,8 +495,16 @@ class Trainer:
         return self._fwd_window
 
     def _fetch(self, t: torch.Tensor) -> np.ndarray:
-        """One device-to-host round trip."""
+        """One device-to-host round trip.  On the card the host first waits
+        for the queued work on a blocking-sync event, so that the copy finds
+        the stream idle: a device-to-host copy that waits holds up every
+        other thread's host-to-device copies until the window ends (the
+        staging producer's; ``utils/profile_host.py`` measures it)."""
         self.host_round_trips += 1
+        if t.is_cuda:
+            done = torch.cuda.Event(blocking=True)
+            done.record(torch.cuda.current_stream(t.device))
+            done.synchronize()
         return t.cpu().numpy()
 
     # -- fault tolerance (ft/) ----------------------------------------------
@@ -424,6 +579,621 @@ class Trainer:
                                             out.ok.to(torch.float32))))
         return float(loss), float(ok)
 
+    # -- the host-augment pipeline -------------------------------------------
+
+    def _rank_cols(self, epoch: int) -> Iterator[np.ndarray]:
+        """This rank's example indices of each global batch of ``epoch``."""
+        return _rank_batch_cols(len(self.train_split.labels),
+                                self.global_batch, epoch, self.seed,
+                                self.world, self.rank,
+                                self.reshuffle_each_epoch)
+
+    def _host_aug_params(self, n: int, epoch: int, it: int):
+        """The reference's counter-based host augmentation stream:
+        (offsets [n,2] int32 in [0,8], flips [n] uint8) of batch ``it`` of
+        ``epoch``, a function of (seed, epoch, it) alone, so every host
+        path (per-step f32, windowed uint8, any chunking, any thread
+        timing) trains the same crops and flips."""
+        rng = np.random.default_rng([self.seed, epoch, it])
+        return (rng.integers(0, 9, (n, 2), dtype=np.int32),
+                rng.integers(0, 2, (n,), dtype=np.uint8))
+
+    def _host_rank_params(self, k: int, epoch: int, it: int):
+        """This rank's ``k`` rows of batch ``it``'s draws.  The reference
+        draws for the whole global batch (``world * k`` rows, device
+        major) and mesh position ``d`` takes rows ``d*k .. (d+1)*k - 1``;
+        rank ``d`` takes the same rows here."""
+        offsets, flips = self._host_aug_params(k * self.world, epoch, it)
+        rows = slice(self.rank * k, (self.rank + 1) * k)
+        return offsets[rows], flips[rows]
+
+    def _host_transform(self, imgs: np.ndarray, epoch: int,
+                        it: int) -> np.ndarray:
+        """The C++ pipeline's transform of this rank's rows, f32 out (the
+        per-step format: ToTensor + Normalize's product)."""
+        if self.augment:
+            return native.augment(
+                imgs, *self._host_rank_params(len(imgs), epoch, it))
+        return native.normalize(imgs)
+
+    def _host_transform_u8(self, imgs: np.ndarray, epoch: int,
+                           it: int) -> np.ndarray:
+        """The same crops and flips, uint8 out (the windowed staging
+        format; normalized on the device, 4x fewer bytes to copy)."""
+        if self.augment:
+            return native.augment_u8(
+                imgs, *self._host_rank_params(len(imgs), epoch, it))
+        return imgs
+
+    def _fill_row(self, out: np.ndarray, cols: np.ndarray, epoch: int,
+                  it: int) -> None:
+        """``_host_transform_u8`` of the rows ``cols`` of the split,
+        gathered and augmented in one pass straight into ``out``."""
+        images = self.train_split.images
+        if self.augment:
+            native.gather_augment_u8(
+                images, cols, *self._host_rank_params(len(cols), epoch, it),
+                out=out)
+        else:
+            native.gather(images, cols, out=out)
+
+    def _put_host_augmented(self, imgs: np.ndarray, labs: np.ndarray,
+                            epoch: int, it: int):
+        """Host-transform one batch (f32) and copy it and its labels to the
+        device: (x, y, ready).  On the card the copies run on the copy
+        stream and ``ready`` is the event after them (``_ready`` orders the
+        compute stream after it); on the CPU ``ready`` is None."""
+        xh = self._host_transform(imgs, epoch, it)
+        yh = np.asarray(labs, np.int64)
+        if self._copy_stream is None:
+            return torch.from_numpy(xh), torch.from_numpy(yh), None
+        with torch.cuda.stream(self._copy_stream):
+            x = torch.from_numpy(xh).to(self.device, non_blocking=True)
+            y = torch.from_numpy(yh).to(self.device, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(self._copy_stream)
+        return x, y, ready
+
+    def _ready(self, ready: Optional[torch.cuda.Event],
+               *tensors: torch.Tensor) -> None:
+        """Order the compute stream after a producer's copies and hand it
+        their memory (``record_stream``): the blocks, allocated on the copy
+        stream, are not reused before the compute stream is done with
+        them."""
+        if ready is None:
+            return
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(ready)
+        for t in tensors:
+            t.record_stream(stream)
+
+    # Batches queued ahead of the consumer: one ready and one in the
+    # producer's hands, as the reference script's num_workers=2 keeps.
+    PREFETCH_DEPTH = 2
+    # How often the consumer looks at the stall deadline while it waits.
+    STALL_POLL_S = 0.2
+
+    def _prefetch_iter(self, fill, depth: Optional[int] = None,
+                       stall_timeout_s: Optional[float] = None,
+                       stop: Optional[threading.Event] = None):
+        """The producer thread both host paths share: runs ``fill(emit)``
+        on a daemon thread (``emit(item)`` enqueues it and returns False
+        once the consumer has gone away, as ``stop`` then says) and yields
+        the emitted items in order.  ``depth`` bounds the queue.  Every
+        exit of the producer enqueues a sentinel (an exception included,
+        re-raised here), so the consumer never blocks for ever; it polls
+        and drains the queue before calling a producer dead without one.
+        ``stall_timeout_s`` (ft supervision) is the consumer's deadline: no
+        item within it while the producer is alive raises
+        ``StagingStalled``.  Closing the generator stops the producer and
+        joins it (``self._producer`` is the thread)."""
+        q: queue.Queue = queue.Queue(maxsize=depth or self.PREFETCH_DEPTH)
+        stop = stop if stop is not None else threading.Event()
+
+        def safe_put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            if self.device.type == "cuda":      # a new thread starts on
+                torch.cuda.set_device(self.device)   # device 0
+            try:
+                fill(lambda item: safe_put(("item", item)))
+                safe_put(("done", None))
+            except BaseException as e:  # noqa: BLE001 - re-raised by the
+                safe_put(("err", e))    # consumer, below
+
+        t = threading.Thread(target=produce, daemon=True,
+                             name="host-augment-prefetch")
+        self._producer = t
+        t.start()
+        last_item_t = time.time()
+        try:
+            while True:
+                try:
+                    kind, payload = q.get(timeout=self.STALL_POLL_S)
+                    last_item_t = time.time()
+                except queue.Empty:
+                    if t.is_alive():
+                        stalled = time.time() - last_item_t
+                        if stall_timeout_s is not None and \
+                                stalled > stall_timeout_s:
+                            raise ftsup.StagingStalled(
+                                f"no staged item for {stalled:.1f}s "
+                                f"(deadline {stall_timeout_s}s) with the "
+                                f"producer thread alive but stuck")
+                        continue
+                    # The producer's last put may have raced the timeout.
+                    try:
+                        kind, payload = q.get_nowait()
+                    except queue.Empty:
+                        raise RuntimeError(
+                            "host-augment prefetch thread exited without "
+                            "delivering a batch or a completion sentinel")
+                if kind == "done":
+                    break
+                if kind == "err":
+                    raise payload
+                yield payload
+        finally:
+            stop.set()
+            t.join(timeout=10)
+            if t.is_alive():
+                self.log("warning: host-augment prefetch thread did not "
+                         "exit within 10s")
+
+    def _stall_timeout(self) -> Optional[float]:
+        return self.ft.stall_timeout_s if self._supervise else None
+
+    def _iter_host_batches(self, epoch: int, start_it: int = 0):
+        """The per-step host path's batches, double-buffered: yields
+        ``(it, x, y, ready)``, batch ``it + 1`` gathered, C++-augmented
+        (f32) and copied to the device on the producer thread while step
+        ``it`` runs.  ``start_it`` (a mid-epoch resume) skips earlier
+        batches; the absolute ``it`` keys the stream."""
+        split = self.train_split
+
+        def fill(emit):
+            for it, cols in enumerate(self._rank_cols(epoch)):
+                if self.limit_train_batches is not None and \
+                        it >= self.limit_train_batches:
+                    break
+                if it < start_it:
+                    continue
+                if not emit((it, *self._put_host_augmented(
+                        native.gather(split.images, cols),
+                        split.labels[cols], epoch, it))):
+                    return
+
+        return self._prefetch_iter(fill,
+                                   stall_timeout_s=self._stall_timeout())
+
+    def _chunk_cap(self) -> int:
+        """Batches per staging chunk: WINDOW split into ``host_chunks``
+        copies (ceil: a window's last chunk may be short,
+        ``_chunk_plan``)."""
+        return -(-WINDOW // self.host_chunks)
+
+    def _chunk_plan(self, w: int) -> List[int]:
+        """The chunk sizes the producer emits for a ``w``-batch window."""
+        cap = self._chunk_cap()
+        sizes = [cap] * (w // cap)
+        if w % cap:
+            sizes.append(w % cap)
+        return sizes
+
+    def _chunk_arena(self, cap: int) -> native.StagingArena:
+        """The staging arena and its device chunks (``ChunkSlots``), made
+        at first use and again when the chunk shape changes (a test that
+        changes WINDOW).  Slots: the queue holds up to two windows' worth
+        of chunks while one more fills, +2 so the producer stalls only on a
+        full pipe."""
+        arena = self._staging_arena
+        if arena is not None and arena.chunk_batches == cap:
+            return arena
+        nslots = 2 * len(self._chunk_plan(WINDOW)) + 2
+        self._staging_arena = native.StagingArena(
+            nslots, cap, self.per_rank_batch,
+            pin=self.device.type == "cuda")
+        self._chunk_slots = ChunkSlots(nslots, cap, self.per_rank_batch,
+                                       self.device)
+        return self._staging_arena
+
+    def _release_chunks(self) -> None:
+        if self._chunk_slots is not None:
+            self._chunk_slots.release_all()
+
+    # The log lines below are the reference's, word for word ("device_put"
+    # is its name for a chunk's copy to the device).
+
+    def _on_put_timeout(self, elapsed_s: float) -> None:
+        """Watchdog callback: a chunk put overran its deadline — detection
+        only (the put may still complete)."""
+        self.log(f"ft: chunk device_put exceeded its "
+                 f"{self.ft.put_timeout_s}s watchdog deadline "
+                 f"({elapsed_s:.1f}s elapsed)")
+
+    def _on_put_retry(self, attempt: int, exc: BaseException) -> None:
+        self.log(f"ft: chunk device_put attempt {attempt + 1} failed "
+                 f"({exc!r}); retrying with backoff")
+
+    def _copy_chunk(self, slot: int, k: int) -> Optional[torch.cuda.Event]:
+        """Copy the first ``k`` rows of arena slot ``slot`` and its labels
+        into the slot's device chunk; on the card asynchronously on the
+        copy stream, after the last assembly that read the chunk, and the
+        event after the copies (the arena's fence and the consumer's
+        wait); on the CPU synchronously, None."""
+        arena, slots = self._staging_arena, self._chunk_slots
+        pairs = ((slots.images[slot][:k], arena.tensor(slot)[:k]),
+                 (slots.labels[slot][:k], slots.host_labels[slot][:k]))
+        if self._copy_stream is None:
+            for dst, src in pairs:
+                dst.copy_(src)
+            return None
+        with torch.cuda.stream(self._copy_stream):
+            after = slots.after(slot)
+            if after is not None:
+                self._copy_stream.wait_event(after)
+            for dst, src in pairs:
+                dst.copy_(src, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(self._copy_stream)
+        return ready
+
+    def _supervised_put(self, put: Callable, lo: int, hi: int):
+        """``put()``, a chunk's copy to the device, under ft supervision:
+        chaos injection (``put_fail`` raises once, ``put_delay`` sleeps
+        past the watchdog once — both keyed to the chunk's absolute batch
+        range [lo, hi)), a detection-only watchdog on the put, and bounded
+        retry with exponential backoff.  Without an FTConfig, ``put()``."""
+        if not self._supervise:
+            return put()
+
+        def attempt():
+            if self.chaos.enabled and \
+                    self.chaos.fire_range("put_fail", lo, hi):
+                self._record_chaos("put_fail", lo)
+                raise ChaosError(
+                    f"injected transient chunk device_put failure "
+                    f"(batches [{lo}, {hi}))")
+            delay = self.chaos.enabled and \
+                self.chaos.fire_range("put_delay", lo, hi)
+            with ftsup.Watchdog(self.ft.put_timeout_s,
+                                on_timeout=self._on_put_timeout):
+                if delay:
+                    self._record_chaos("put_delay", lo)
+                    time.sleep(2.0 * self.ft.put_timeout_s)
+                return put()
+
+        return ftsup.call_with_retry(
+            attempt, attempts=self.ft.put_retries,
+            backoff_base_s=self.ft.backoff_base_s,
+            on_retry=self._on_put_retry)
+
+    def _per_rank_batch_counts(self) -> Tuple[int, int]:
+        """(full batches, rows of the ragged batch) of this rank's epoch,
+        from the sampler's wrap-padding to a multiple of the world."""
+        per_rank = -(-len(self.train_split.labels) // self.world)
+        return divmod(per_rank, self.per_rank_batch)
+
+    def _host_full_batches(self) -> int:
+        """Full batches the host path trains this epoch, within the
+        limit: the last window closes at it."""
+        nfull, _ = self._per_rank_batch_counts()
+        if self.limit_train_batches is not None:
+            nfull = min(nfull, self.limit_train_batches)
+        return nfull
+
+    def _iter_host_window_chunks(self, epoch: int, start_it: int = 0):
+        """The chunked windowed host pipeline.  A producer thread fills
+        arena rows with the fused C++ gather + crop/flip
+        (``native.gather_augment_u8``: one host copy from the resident
+        dataset) and copies each chunk of ``_chunk_cap()`` batches to its
+        device chunk, so that the next window's copies overlap this
+        window's replays; the consumer assembles a window's chunks into
+        the window buffer (``_assemble``).  uint8 all the way: the
+        normalize runs on the device.
+
+        Yields ``("chunk", Chunk)`` — ``last`` marks a window boundary —
+        and ``("tail", (it, x, y, ready))`` for the ragged final batch
+        (f32, the per-step format).  Each batch is augmented at its
+        absolute index, so the stream is the per-step path's whatever
+        ``host_chunks`` or the thread timing; ``start_it`` (a resume, a
+        producer restart) skips earlier batches, and windows close on the
+        absolute grid.  Under an FTConfig the puts are supervised
+        (``_supervised_put``), the arena's fence wait has a watchdog, and
+        ``verify_chunks`` checksums every row at fill time and re-stages
+        any row whose bytes changed by flush time (what the
+        ``corrupt_slot`` site injects) at the same absolute index, so the
+        repaired stream is bitwise the same."""
+        cap = self._chunk_cap()
+        arena = self._chunk_arena(cap)
+        slots = self._chunk_slots
+        nlim = self._host_full_batches()
+        fence_timeout = self.ft.put_timeout_s if self._supervise else None
+        stop = threading.Event()
+        split = self.train_split
+
+        times = self.last_producer_times
+        clock = time.perf_counter
+
+        def fill(emit):
+            chunk_x = None       # the arena rows of the chunk being filled
+            slot = -1
+            chunk_meta: list = []   # (absolute it, cols) per filled row
+            chunk_sums: list = []   # fill-time crc32 per row
+
+            def on_fence_timeout(elapsed_s):
+                self.log(f"ft: arena slot fence exceeded its "
+                         f"{fence_timeout}s watchdog deadline")
+
+            def inject_and_verify(k: int, lo: int) -> None:
+                """Chaos byte corruption, then the checksum check and
+                repair, between fill and put — where a buffer-reuse bug
+                would strike."""
+                if self.chaos.enabled:
+                    for s in self.chaos.steps("corrupt_slot"):
+                        if lo <= s < lo + k and \
+                                self.chaos.fire("corrupt_slot", s):
+                            self._record_chaos("corrupt_slot", s)
+                            rng = self.chaos.rng("corrupt_slot", s)
+                            flat = chunk_x[s - lo].reshape(-1)
+                            pos = rng.integers(0, flat.size, size=8)
+                            flat[pos] ^= np.uint8(rng.integers(1, 256))
+                if not self._verify_chunks:
+                    return
+                for j in ftsup.verify_checksums(chunk_x[:k], chunk_sums):
+                    it_j, cols_j = chunk_meta[j]
+                    self.log(f"ft: staged batch {it_j} failed its checksum; "
+                             f"re-staging from the resident dataset")
+                    self._fill_row(chunk_x[j], cols_j, epoch, it_j)
+                    if ftsup.verify_checksums([chunk_x[j]],
+                                              [chunk_sums[j]]):
+                        raise ftsup.StagingStalled(
+                            f"staged batch {it_j} fails its checksum even "
+                            f"after re-staging — arena memory is unsafe")
+
+            def flush(last: bool) -> bool:
+                nonlocal chunk_x, slot
+                k = len(chunk_meta)
+                if k == 0:
+                    return True
+                lo = chunk_meta[0][0]
+                t0 = clock()
+                inject_and_verify(k, lo)
+                t1 = clock()
+                ready = self._supervised_put(
+                    lambda: self._copy_chunk(slot, k), lo, lo + k)
+                arena.retire(slot, ready)
+                item = Chunk(k, lo, last, slot, ready)
+                chunk_x, slot = None, -1
+                chunk_meta.clear()
+                chunk_sums.clear()
+                t2 = clock()
+                sent = emit(("chunk", item))
+                times["verify"] += t1 - t0
+                times["put"] += t2 - t1
+                times["emit"] += clock() - t2
+                return sent
+
+            for it, cols in enumerate(self._rank_cols(epoch)):
+                if self.limit_train_batches is not None and \
+                        it >= self.limit_train_batches:
+                    break
+                if it < start_it:
+                    continue
+                if self.chaos.enabled and \
+                        self.chaos.fire("producer_crash", it):
+                    self._record_chaos("producer_crash", it)
+                    raise ChaosError(
+                        f"injected staging producer crash at batch {it}")
+                if len(cols) < self.per_rank_batch:   # the ragged tail
+                    if flush(last=True):
+                        emit(("tail", (it, *self._put_host_augmented(
+                            native.gather(split.images, cols),
+                            split.labels[cols], epoch, it))))
+                    return
+                if chunk_x is None:
+                    t0 = clock()
+                    slot, chunk_x = arena.acquire(
+                        fence_timeout_s=fence_timeout,
+                        on_timeout=on_fence_timeout)
+                    t1 = clock()
+                    if not slots.claim(slot, stop):
+                        return
+                    times["fence"] += t1 - t0
+                    times["claim"] += clock() - t1
+                t0 = clock()
+                row = len(chunk_meta)
+                self._fill_row(chunk_x[row], cols, epoch, it)
+                slots.host_labels[slot].numpy()[row] = split.labels[cols]
+                chunk_meta.append((it, cols))
+                t1 = clock()
+                if self._verify_chunks:
+                    chunk_sums.append(ftsup.batch_checksums(
+                        [chunk_x[row]])[0])
+                times["fill"] += t1 - t0
+                times["verify"] += clock() - t1
+                boundary = (it + 1) % WINDOW == 0 or (it + 1) == nlim
+                if (row + 1 == cap or boundary) and \
+                        not flush(last=boundary):
+                    return
+
+        return self._prefetch_iter(
+            fill, depth=2 * len(self._chunk_plan(WINDOW)),
+            stall_timeout_s=self._stall_timeout(), stop=stop)
+
+    def _iter_host_window_chunks_sync(self, epoch: int, start_it: int = 0):
+        """The degraded staging mode: ``_iter_host_window_chunks``' items,
+        made on the consumer's thread, one batch a chunk, from a private
+        host buffer that ``_assemble`` copies straight into the window
+        buffer (no thread, no arena).  What a staging failure degrades to
+        once its restart budget is spent: the overlap is lost, the stream
+        is the same bits (absolute keys; a window does not depend on how
+        it was chunked)."""
+        nlim = self._host_full_batches()
+        split = self.train_split
+        for it, cols in enumerate(self._rank_cols(epoch)):
+            if self.limit_train_batches is not None and \
+                    it >= self.limit_train_batches:
+                break
+            if it < start_it:
+                continue
+            if len(cols) < self.per_rank_batch:   # the ragged tail
+                yield ("tail", (it, *self._put_host_augmented(
+                    native.gather(split.images, cols), split.labels[cols],
+                    epoch, it)))
+                return
+            x = np.empty((1, self.per_rank_batch, 32, 32, 3), np.uint8)
+            self._fill_row(x[0], cols, epoch, it)
+            last = (it + 1) % WINDOW == 0 or (it + 1) == nlim
+            yield ("chunk", Chunk(1, it, last, None, None, (
+                x, np.asarray(split.labels[cols], np.int64)[None])))
+
+    def _assemble(self, chunks: List[Chunk], start: int) -> int:
+        """Copy a window's chunks, in order, into the window buffer's rows
+        ``0 .. w-1`` (on the card after each chunk's copy event, device to
+        device), then give their slots back with the event after the
+        copies; w.  The chunks must be the batches ``start ..``."""
+        window = self.train_window()
+        slots = self._chunk_slots
+        stream = torch.cuda.current_stream(self.device) \
+            if self.device.type == "cuda" else None
+        row = 0
+        for c in chunks:
+            if c.lo != start + row:
+                raise RuntimeError(f"a chunk of batches from {c.lo} arrived "
+                                   f"where the window expects batch "
+                                   f"{start + row}")
+            dst = (window.images[row:row + c.k], window.labels[row:row + c.k])
+            if c.slot is None:
+                src = tuple(torch.from_numpy(a) for a in c.host)
+            else:
+                if c.ready is not None:
+                    stream.wait_event(c.ready)
+                src = (slots.images[c.slot][:c.k], slots.labels[c.slot][:c.k])
+            for d, s_ in zip(dst, src):
+                d.copy_(s_)
+            row += c.k
+        after = None
+        if stream is not None:
+            after = torch.cuda.Event()
+            after.record(stream)
+        for c in chunks:
+            if c.slot is not None:
+                slots.release(c.slot, after)
+        return row
+
+    def _train_model_host_windowed(self, epoch: int,
+                                   start_step: int = 0) -> WindowedTimers:
+        """A windowed host-augment epoch: the window's replays over the
+        chunk-staged C++-augmented buffer (``_iter_host_window_chunks``),
+        with the reference's print and timing schedule; the ragged tail
+        through the per-step f32 step.
+
+        Under an FTConfig this is the supervised path: a staging failure
+        (the producer died, by chaos or for real; the consumer's stall
+        deadline passed) drops the window being assembled and restarts the
+        producer from the last TRAINED batch — once — then degrades to the
+        synchronous mode (``_iter_host_window_chunks_sync``).  Both keep
+        the training stream bitwise: batches are keyed by absolute index,
+        and ``trained`` advances a whole window at a time."""
+        timers = WindowedTimers(self.log)
+        # The arena, the device chunks and the window buffer exist before
+        # the producer starts and before the window's capture.
+        window = self.train_window()
+        self._chunk_arena(self._chunk_cap())
+        self.last_chunk_waits = []
+        self.last_producer_times = Counter()
+        trained = start_step
+        restarts_left = self.ft.producer_restarts if self._supervise else 0
+        self._check_preempt(epoch, trained)
+
+        def make_iter(start):
+            if self.staging_degraded:
+                return self._iter_host_window_chunks_sync(epoch, start)
+            return self._iter_host_window_chunks(epoch, start)
+
+        chunk_iter = make_iter(trained)
+        pending: List[Chunk] = []
+        waited = 0.0
+        try:
+            while True:
+                t_wait = time.time()
+                try:
+                    item = next(chunk_iter, None)
+                except Exception as e:
+                    if not self._supervise:
+                        raise
+                    self.producer_failures += 1
+                    chunk_iter.close()
+                    self._release_chunks()
+                    pending = []
+                    if restarts_left > 0:
+                        restarts_left -= 1
+                        self.log(f"ft: staging failed at step {trained} "
+                                 f"({type(e).__name__}: {e}); restarting "
+                                 f"the producer from step {trained}")
+                    else:
+                        self.staging_degraded = True
+                        self.log(f"ft: staging failed again at step "
+                                 f"{trained} ({type(e).__name__}: {e}); "
+                                 f"restart budget exhausted — degrading to "
+                                 f"synchronous per-batch staging (stream "
+                                 f"unchanged, overlap lost)")
+                    chunk_iter = make_iter(trained)
+                    continue
+                waited += time.time() - t_wait
+                if item is None:
+                    break
+                kind, payload = item
+                if kind == "tail":
+                    it, x, y, ready = payload
+                    self._ready(ready, x, y)
+                    if self._nf_chaos_steps and \
+                            self.chaos.fire("nonfinite_grad", it):
+                        self._record_chaos("nonfinite_grad", it)
+                    t0 = time.time()
+                    loss, ok = self._step_fetch(x, y, epoch, it)
+                    timers.record(loss, time.time() - t0, steady=False)
+                    trained = it + 1
+                    if ok is not None:
+                        self._handle_nonfinite([ok], epoch)
+                    self._check_preempt(epoch, trained)
+                    continue
+                pending.append(payload)
+                if not payload.last:
+                    continue
+                w = self._assemble(pending, trained)
+                pending = []
+                self.last_chunk_waits.append(waited)
+                waited = 0.0
+                t0 = time.time()
+                fetched = self._fetch(window(epoch, trained, w))
+                per_iter = (time.time() - t0) / w
+                losses, oks = window.columns(fetched, trained, w)
+                for loss in losses:
+                    timers.record(float(loss), per_iter)
+                if self._nf_chaos_steps and self.chaos.fire_range(
+                        "nonfinite_grad", trained, trained + w):
+                    self._record_chaos("nonfinite_grad", next(
+                        s for s in self._nf_chaos_steps
+                        if trained <= s < trained + w))
+                trained += w
+                if oks is not None:
+                    self._handle_nonfinite(oks, epoch)
+                self._check_preempt(epoch, trained)
+        finally:
+            chunk_iter.close()
+            self._release_chunks()
+        self.last_epoch_timers = timers
+        return timers
+
     # -- reference-parity loops ---------------------------------------------
 
     def train_model(self, epoch: int, start_step: int = 0) -> WindowedTimers:
@@ -437,10 +1207,14 @@ class Trainer:
 
         ``start_step`` (mid-epoch resume) skips the first batches; the
         windows realign to the absolute 20-step grid, so a resumed run
-        trains the same windows as an uninterrupted one."""
+        trains the same windows as an uninterrupted one.  With
+        ``host_augment`` the windows train from the host pipeline's staged
+        chunks (``_train_model_host_windowed``)."""
         self._epoch_nf = [0, 0]
         if self.profile_phases:
             timers = self._train_model_per_step(epoch, start_step)
+        elif self.host_augment:
+            timers = self._train_model_host_windowed(epoch, start_step)
         else:
             timers = self._train_model_windowed(epoch, start_step)
         if any(self._epoch_nf):
@@ -485,34 +1259,46 @@ class Trainer:
         self.last_epoch_timers = timers
         return timers
 
-    def _train_model_per_step(self, epoch: int,
-                              start_step: int = 0) -> WindowedTimers:
-        """One eager step per batch, its loss fetched after it, and the
-        forward-only program timed (and fetched) before it."""
-        timers = WindowedTimers(self.log)
-        self._check_preempt(epoch, start_step)
+    def _device_batches(self, epoch: int, start_step: int = 0):
+        """The per-step path's batches without ``host_augment``: ``(it, x,
+        y, None)``, this rank's uint8 rows copied to the device."""
         for it, (imgs, labs) in enumerate(_train_batches(
                 self.train_split, self.global_batch, epoch, self.seed,
-                self.world, self.rank)):
+                self.world, self.rank, self.reshuffle_each_epoch)):
             if self.limit_train_batches is not None and \
                     it >= self.limit_train_batches:
                 break
             if it < start_step:
                 continue
-            x, y = self._to_device(imgs, labs)
-            t0 = time.time()
-            self._fetch(self.forward_step(x, y))
-            fwd_time = time.time() - t0
-            if self._nf_chaos_steps and \
-                    self.chaos.fire("nonfinite_grad", it):
-                self._record_chaos("nonfinite_grad", it)
-            t0 = time.time()
-            loss, ok = self._step_fetch(x, y, epoch, it)
-            timers.record(loss, time.time() - t0, fwd_time,
-                          steady=len(labs) == self.per_rank_batch)
-            if ok is not None:
-                self._handle_nonfinite([ok], epoch)
-            self._check_preempt(epoch, it + 1)
+            yield (it, *self._to_device(imgs, labs), None)
+
+    def _train_model_per_step(self, epoch: int,
+                              start_step: int = 0) -> WindowedTimers:
+        """One eager step per batch, its loss fetched after it, and the
+        forward-only program timed (and fetched) before it.  With
+        ``host_augment`` the batches are the host pipeline's f32 ones,
+        prepared on the producer thread while the step before runs
+        (``_iter_host_batches``)."""
+        timers = WindowedTimers(self.log)
+        self._check_preempt(epoch, start_step)
+        batches = self._iter_host_batches(epoch, start_step) \
+            if self.host_augment else self._device_batches(epoch, start_step)
+        with contextlib.closing(batches):
+            for it, x, y, ready in batches:
+                self._ready(ready, x, y)
+                t0 = time.time()
+                self._fetch(self.forward_step(x, y))
+                fwd_time = time.time() - t0
+                if self._nf_chaos_steps and \
+                        self.chaos.fire("nonfinite_grad", it):
+                    self._record_chaos("nonfinite_grad", it)
+                t0 = time.time()
+                loss, ok = self._step_fetch(x, y, epoch, it)
+                timers.record(loss, time.time() - t0, fwd_time,
+                              steady=x.shape[0] == self.per_rank_batch)
+                if ok is not None:
+                    self._handle_nonfinite([ok], epoch)
+                self._check_preempt(epoch, it + 1)
         self.last_epoch_timers = timers
         return timers
 
@@ -542,7 +1328,7 @@ class Trainer:
             "compress_rank": self.compress_rank, "seed": self.seed,
             "precision": self.precision, "global_batch": self.global_batch,
             "world": self.world, "augment": self.augment,
-            "reshuffle_each_epoch": False,
+            "reshuffle_each_epoch": self.reshuffle_each_epoch,
             "lr": self.sgd_cfg.lr, "momentum": self.sgd_cfg.momentum,
             "weight_decay": self.sgd_cfg.weight_decay,
             "limit_train_batches": self.limit_train_batches,
@@ -554,15 +1340,18 @@ class Trainer:
         """The topology and data-order sidecar of every save."""
         return {
             "world": self.world, "global_batch": self.global_batch,
-            "seed": self.seed, "reshuffle_each_epoch": False,
+            "seed": self.seed,
+            "reshuffle_each_epoch": self.reshuffle_each_epoch,
             "rank_keys": list(sharding.rank_data_keys(
                 len(self.train_split.labels), self.world, seed=self.seed,
-                epoch=epoch))}
+                epoch=epoch,
+                reshuffle_each_epoch=self.reshuffle_each_epoch))}
 
     def _data_order_meta(self, epoch: int, step: int) -> dict:
         """The mid-epoch sidecar's ``data_order``."""
         return {"seed": self.seed, "epoch": epoch, "step": step,
-                "reshuffle_each_epoch": False, **self._epoch_meta(epoch)}
+                "reshuffle_each_epoch": self.reshuffle_each_epoch,
+                **self._epoch_meta(epoch)}
 
     def checkpoint_tensors(self) -> Dict[str, torch.Tensor]:
         """What a save writes: a CPU copy of every tensor the step
@@ -740,7 +1529,14 @@ class Trainer:
         w))`` windows back to back, each on a fresh augmentation key, with
         one fetch after the last.  ``window_iters``: steps per window,
         ``"epoch"`` for the whole staged epoch, None for
-        ``min(epoch, max(max_iters, 20))``.  It trains: the state moves."""
+        ``min(epoch, max(max_iters, 20))``.  It trains: the state moves.
+        The device-augment path only, as the reference's."""
+        if self.host_augment:
+            raise ValueError(
+                "steady_state_throughput measures the windowed path "
+                "(device-side transform); it does not support "
+                "host_augment=True — construct a separate Trainer for "
+                "throughput measurement")
         nbatches = self._full_batches("steady_state_throughput")
         if window_iters == "epoch":
             w = nbatches
@@ -766,7 +1562,13 @@ class Trainer:
         each is the slope between the sizes (the fixed cost of a window
         cancels), each total the min of ``windows`` timings, and
         backward (+ sync + update) is train - forward.  The train windows
-        really train; the state is restored bit for bit afterwards."""
+        really train; the state is restored bit for bit afterwards.  The
+        device-augment path only, as the reference's."""
+        if self.host_augment:
+            raise ValueError(
+                "measure_phase_split times the windowed path (device-side "
+                "transform); it does not support host_augment=True — "
+                "construct a separate Trainer for the phase split")
         nbatches = self._full_batches("measure_phase_split")
         w = min(window_iters, nbatches)
         half = max(w // 2, 1)

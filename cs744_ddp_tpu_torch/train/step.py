@@ -10,12 +10,13 @@ collectives go over the process group (``parallel/``), and the
 pool-preceded BN blocks' backward launches the fused CUDA kernels.
 
 A window (``TrainWindow``, ``FwdWindow``) reads its batches from the
-staged epoch at a DEVICE index and writes its results to persistent device
-tensors, so that one step is a function of fixed addresses only: on the
-card it is captured once into a CUDA graph and each step of a window is a
-replay of it (``GraphStep``); on the CPU the same body runs eagerly (gloo
-collectives cannot be captured).  Everything the step carries across steps
-is updated in place: the parameters and momentum (``ops/sgd.py``), the BN
+staged epoch (or, on the host-augment path, from one window's buffer that
+the host refills) at a DEVICE index and writes its results to persistent
+device tensors, so that one step is a function of fixed addresses only: on
+the card it is captured once into a CUDA graph and each step of a window
+is a replay of it (``GraphStep``); on the CPU the same body runs eagerly
+(gloo collectives cannot be captured).  Everything the step carries across
+steps is updated in place: the parameters and momentum (``ops/sgd.py``), the BN
 running statistics (``copy_`` in the modules), a compressed strategy's
 residuals and Q factors (``copy_comm``).  So a restore (a checkpoint, a
 mid-epoch resume, a rollback) ``copy_``s into those same tensors.
@@ -154,17 +155,47 @@ def copy_comm(comm: Dict, new_comm: Dict,
             torch.where(ok, new, old, out=old)
 
 
-def prepare(images_u8: torch.Tensor, augment: bool, key: int,
+# What a program's input is, and what ``prepare`` does with it:
+#   True      uint8; the counter-keyed crop/flip of batch ``idx`` of
+#             ``epoch`` and the normalize, on the device;
+#   False     uint8; normalize only;
+#   "host"    f32, already cropped, flipped and normalized by the C++ host
+#             pipeline (the reference's ``augment="host"``): passed through;
+#   "host_u8" uint8, cropped and flipped by the C++ host pipeline (the
+#             windowed host path's staged format): the pipeline's own
+#             affine normalize on the device (``aug.normalize_affine``), so
+#             the step sees bit for bit what "host" hands it.
+AUGMENT_MODES = (True, False, "host", "host_u8")
+
+
+def _check_augment(augment) -> None:
+    if augment not in AUGMENT_MODES:
+        raise ValueError(f"augment must be one of {AUGMENT_MODES}, got "
+                         f"{augment!r}")
+
+
+def _input_stats(augment, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-channel constants ``prepare`` takes for ``augment``."""
+    return aug.affine_stats(device) if augment == "host_u8" \
+        else aug.channel_stats(device)
+
+
+def prepare(images: torch.Tensor, augment, key: int,
             epoch: torch.Tensor, idx: torch.Tensor,
             stats: Tuple[torch.Tensor, torch.Tensor],
             compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """uint8 [B,32,32,3] -> the model's input [B,3,32,32] (channels_last):
-    the counter-keyed crop/flip of batch ``idx`` of ``epoch`` + normalize
-    when ``augment``, else normalize only, in f32; then cast to
+    """A batch [B,32,32,3] -> the model's input [B,3,32,32] (channels_last)
+    in f32, as ``augment`` (``AUGMENT_MODES``) says; then cast to
     ``compute_dtype`` (None: stays f32), as the reference's
     ``fold_and_prepare`` casts after the transform."""
-    x = aug.augment(images_u8, key, epoch, idx, stats) if augment \
-        else aug.normalize(images_u8, stats)
+    if augment == "host":
+        x = images
+    elif augment == "host_u8":
+        x = aug.normalize_affine(images, stats)
+    elif augment:
+        x = aug.augment(images, key, epoch, idx, stats)
+    else:
+        x = aug.normalize(images, stats)
     return aug.cast(aug.to_model_input(x), compute_dtype)
 
 
@@ -203,14 +234,16 @@ def _stream_key(seed: int, group: Optional[Group]) -> int:
 
 def make_step_body(model: nn.Module, strategy=strategies.local,
                    cfg: sgd.SGDConfig = sgd.SGDConfig(), *,
-                   augment: bool = True, group: Optional[Group] = None,
+                   augment=True, group: Optional[Group] = None,
                    seed: int = 0,
                    compute_dtype: Optional[torch.dtype] = None,
                    nonfinite_guard: bool = False,
                    nonfinite_chaos_steps: Tuple[int, ...] = ()) -> Callable:
-    """body(state, images_u8, labels, epoch, idx) -> ``StepOut``: one
-    train step on this rank's rows, ``epoch`` and ``idx`` int64 0-d
-    tensors on the model's device that key the augmentation draws.
+    """body(state, images, labels, epoch, idx) -> ``StepOut``: one train
+    step on this rank's rows, ``epoch`` and ``idx`` int64 0-d tensors on
+    the model's device that key the augmentation draws.  ``augment`` says
+    what ``images`` is (``AUGMENT_MODES``): uint8 by default, f32 host-
+    augmented batches with ``"host"``.
     ``compute_dtype`` (None: f32) is the activations' dtype; parameters,
     gradients, momentum, comm state, BN statistics and the loss stay f32.
 
@@ -231,6 +264,7 @@ def make_step_body(model: nn.Module, strategy=strategies.local,
     if nonfinite_chaos_steps and not nonfinite_guard:
         raise ValueError("NaN injection (nonfinite_chaos_steps) needs the "
                          "non-finite guard")
+    _check_augment(augment)
     params = list(model.parameters())
     single = strategy is strategies.local
     if single and group is not None and group.world != 1:
@@ -243,7 +277,7 @@ def make_step_body(model: nn.Module, strategy=strategies.local,
     overlap = strategy.attach(params, group) \
         if hasattr(strategy, "attach") else None
     key = _stream_key(seed, group)
-    norm = aug.channel_stats(_device_of(model))
+    norm = _input_stats(augment, _device_of(model))
     guard = None
     if nonfinite_guard:
         guard = ftguard.StepGuard(list(model.buffers()), params,
@@ -301,13 +335,13 @@ def make_step_body(model: nn.Module, strategy=strategies.local,
 
 def make_train_step(model: nn.Module, strategy=strategies.local,
                     cfg: sgd.SGDConfig = sgd.SGDConfig(), *,
-                    augment: bool = True,
+                    augment=True,
                     group: Optional[Group] = None, seed: int = 0,
                     compute_dtype: Optional[torch.dtype] = None,
                     nonfinite_guard: bool = False,
                     nonfinite_chaos_steps: Tuple[int, ...] = ()
                     ) -> Callable:
-    """step(state, images_u8 [B,32,32,3], labels [B], epoch=0, idx=0) ->
+    """step(state, images [B,32,32,3], labels [B], epoch=0, idx=0) ->
     loss: ``make_step_body`` on a batch the caller hands over, ``epoch``
     and ``idx`` (ints or int64 0-d device tensors) keying the augmentation.
     ``step.body`` is the body, for a window that shares it;
@@ -335,7 +369,7 @@ def make_train_step(model: nn.Module, strategy=strategies.local,
     return step
 
 
-def make_forward_body(model: nn.Module, *, augment: bool = True,
+def make_forward_body(model: nn.Module, *, augment=True,
                       group: Optional[Group] = None, seed: int = 0,
                       compute_dtype: Optional[torch.dtype] = None
                       ) -> Callable:
@@ -346,8 +380,9 @@ def make_forward_body(model: nn.Module, *, augment: bool = True,
     modules does: a caller that must leave them unchanged, as the
     reference's forward-only programs do, restores the model's buffers
     (running statistics and ``num_batches_tracked``)."""
+    _check_augment(augment)
     key = _stream_key(seed, group)
-    norm = aug.channel_stats(_device_of(model))
+    norm = _input_stats(augment, _device_of(model))
 
     @torch.no_grad()
     def fwd(images_u8: torch.Tensor, labels: torch.Tensor,
@@ -367,13 +402,14 @@ def make_forward_body(model: nn.Module, *, augment: bool = True,
 
 
 def make_forward_step(model: nn.Module, group: Optional[Group] = None,
-                      compute_dtype: Optional[torch.dtype] = None
-                      ) -> Callable:
-    """fwd(images_u8, labels) -> loss: the reference's per-step
-    forward-only program of ``profile_phases`` (normalize, forward in train
-    mode, loss meaned over the ranks), BN running statistics left as they
-    were."""
-    body = make_forward_body(model, augment=False, group=group,
+                      compute_dtype: Optional[torch.dtype] = None,
+                      augment=False) -> Callable:
+    """fwd(images, labels) -> loss: the reference's per-step forward-only
+    program of ``profile_phases`` (normalize, forward in train mode, loss
+    meaned over the ranks), BN running statistics left as they were.
+    ``augment="host"`` takes the host path's f32 batches, as the
+    reference's does under ``host_augment``."""
+    body = make_forward_body(model, augment=augment, group=group,
                              compute_dtype=compute_dtype)
     buffers = list(model.buffers())
 
@@ -465,16 +501,23 @@ class GraphStep:
 
 
 class _Window:
-    """What the train and forward windows share: the staged epoch
-    (``images [NB,b,32,32,3]`` uint8, ``labels [NB,b]`` int64, persistent),
-    the device scalars ``epoch``, ``idx`` (the absolute batch index of the
-    next step) and ``pos`` (the step's place in the window), a loss vector
-    of one slot per batch, and the ``GraphStep`` of ``_step``."""
+    """What the train and forward windows share: the batches (``images
+    [NB,b,32,32,3]``, ``labels [NB,b]`` int64, persistent), the device
+    scalars ``epoch``, ``idx`` (the absolute batch index of the next step)
+    and ``pos`` (the step's place in the window), a loss vector of one
+    slot per batch, and the ``GraphStep`` of ``_step``.
+
+    The batches are the staged epoch, read at ``idx``; or, ``buffered``,
+    one window's buffer (the host path's: the window's batches in rows
+    ``0 .. w-1``, refilled before each window), read at ``pos`` while
+    ``idx`` stays absolute, as the guard's injection and the ring's
+    markers key on it."""
 
     def __init__(self, images: torch.Tensor, labels: torch.Tensor,
-                 group: Optional[Group]):
+                 group: Optional[Group], buffered: bool = False):
         dev = images.device
         self.images, self.labels = images, labels
+        self.buffered = buffered
         self.epoch = torch.zeros((), dtype=torch.int64, device=dev)
         self.idx = torch.zeros((), dtype=torch.int64, device=dev)
         self.pos = torch.zeros((), dtype=torch.int64, device=dev)
@@ -486,12 +529,16 @@ class _Window:
         return [self.epoch, self.idx, self.pos, self.losses]
 
     def _batch(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        i = self.idx.reshape(1)
+        i = (self.pos if self.buffered else self.idx).reshape(1)
         return (self.images.index_select(0, i)[0],
                 self.labels.index_select(0, i)[0])
 
     def _record_loss(self, loss: torch.Tensor) -> None:
         self.losses.index_copy_(0, self.pos.reshape(1), loss.reshape(1))
+
+    def _advance(self) -> None:
+        """The end of every step: on to the next batch and place."""
+        self.idx.add_(1)
         self.pos.add_(1)
 
     def _step(self) -> None:
@@ -499,7 +546,7 @@ class _Window:
 
     def _run(self, epoch: int, start: int, w: int) -> None:
         nb = self.images.shape[0]
-        if w < 1 or start < 0 or start + w > nb:
+        if w < 1 or start < 0 or (w if self.buffered else start + w) > nb:
             raise ValueError(f"window of {w} from batch {start} does not fit "
                              f"the {nb} staged batches")
         self.epoch.fill_(epoch)
@@ -515,7 +562,9 @@ class TrainWindow(_Window):
     returns, without synchronising, the device tensor the host drains once:
     the metric ring's buffer (``ring_capacity`` > 0; one (loss, grad
     sqnorm, ok, marker) row per step) or the window's losses (with the
-    guard on, stacked over its ``oks``).
+    guard on, stacked over its ``oks``).  ``buffered``: the batches are
+    one window's buffer, and the window trains its rows ``0 .. w - 1`` as
+    the batches ``start ..`` (``_Window``).
 
     ``body`` is ``make_step_body``'s (the per-step path's own, so the two
     share the step and its hooks).  Each step reads its batch at the device
@@ -526,13 +575,14 @@ class TrainWindow(_Window):
     def __init__(self, body: Callable, state: TrainState,
                  images: torch.Tensor, labels: torch.Tensor, *,
                  group: Optional[Group] = None,
-                 ring_capacity: int = ringbuf.DEFAULT_CAPACITY):
+                 ring_capacity: int = ringbuf.DEFAULT_CAPACITY,
+                 buffered: bool = False):
         self.body = body
         self.state = state
         self.guarded = getattr(body, "guard", None) is not None
         self.ring = ringbuf.Ring(ring_capacity, images.device) \
             if ring_capacity else None
-        super().__init__(images, labels, group)
+        super().__init__(images, labels, group, buffered)
         # The guard's flags when no ring holds them: one slot per batch.
         self.oks = torch.ones_like(self.losses) \
             if self.guarded and self.ring is None else None
@@ -557,7 +607,7 @@ class TrainWindow(_Window):
                                          out.ok.to(torch.float32)
                                          .reshape(1))
                 self._record_loss(out.loss)
-            self.idx.add_(1)
+            self._advance()
 
     def __call__(self, epoch: int, start: int, w: int) -> torch.Tensor:
         self._run(epoch, start, w)
@@ -614,7 +664,7 @@ class FwdWindow(_Window):
     def _step(self) -> None:
         loss = self.body(*self._batch(), self.epoch, self.idx)
         self._record_loss(loss)
-        self.idx.add_(1)
+        self._advance()
 
     def __call__(self, epoch: int, start: int, w: int) -> torch.Tensor:
         with preserved(self.buffers):

@@ -14,7 +14,6 @@ counter-keyed draws), on the CPU, where a window runs its step eagerly.
     validation; ``measure_phase_split`` restoring the state.
 """
 
-import functools
 import os
 import re
 
@@ -32,7 +31,6 @@ from cs744_ddp_tpu.parallel import make_mesh, strategies
 from cs744_ddp_tpu.train import step as jstep
 from cs744_ddp_tpu_torch.data import augment as taug
 from cs744_ddp_tpu_torch.data import cifar10 as tcifar
-from cs744_ddp_tpu_torch.data import sharding as tsharding
 from cs744_ddp_tpu_torch.models import convert, vgg as tvgg
 from cs744_ddp_tpu_torch.obs import ringbuf
 from cs744_ddp_tpu_torch.ops import sgd as tsgd
@@ -345,16 +343,16 @@ def test_steady_state_throughput_runs_back_to_back_windows():
         _narrow_trainer(global_batch=512).steady_state_throughput()
 
 
-def test_window_is_bitwise_the_per_step_path_from_a_later_epoch(monkeypatch):
+def test_window_is_bitwise_the_per_step_path_from_a_later_epoch():
     """A fresh Trainer whose first call is ``train_model(1)`` (a resume):
     the window trains epoch 1's rows, as the per-step path does.  The
     sampler's order is the same every epoch (the reference script never
-    calls ``set_epoch``), so it is reshuffled per epoch here: epoch 1 then
-    stages other rows than epoch 0 into the same buffers."""
-    monkeypatch.setattr(tsharding, "global_epoch_indices", functools.partial(
-        tsharding.global_epoch_indices, reshuffle_each_epoch=True))
-    win = _narrow_trainer(limit_train_batches=5)
-    per = _narrow_trainer(limit_train_batches=5, profile_phases=True)
+    calls ``set_epoch``), so it is reshuffled per epoch here
+    (``reshuffle_each_epoch``): epoch 1 then stages other rows than epoch
+    0 into the same buffers."""
+    win = _narrow_trainer(limit_train_batches=5, reshuffle_each_epoch=True)
+    per = _narrow_trainer(limit_train_batches=5, profile_phases=True,
+                          reshuffle_each_epoch=True)
     win.train_model(1)
     per.train_model(1)
     assert win.last_epoch_timers.losses == per.last_epoch_timers.losses

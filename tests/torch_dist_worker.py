@@ -34,6 +34,11 @@ once for all of them):
     ``--nonfinite skip`` with NaN gradients planned at batch ``bad``;
     writes the ring's rows, the skipped count and whether the state is
     finite.
+  * ``host``       — ``host_augment``, ``loop.WINDOW`` set to ``window``,
+    the split cut to its first ``examples`` rows: a narrow VGG trained one
+    epoch by the host windowed path and by the host per-step path; writes
+    the window buffer's rows after each assembly and the ragged tail's f32
+    batch (this rank's rows of the host stream), both states and losses.
 
 ``start`` starts the ranks; ``Ranks.wait`` waits for them, killing them
 at the time limit.
@@ -320,9 +325,54 @@ def task_guard(task: dict, group, rank: int, outdir: str) -> None:
     np.savez(os.path.join(outdir, f"guard_r{rank}.npz"), **results)
 
 
+def task_host(task: dict, group, rank: int, outdir: str) -> None:
+    from cs744_ddp_tpu_torch.data.cifar10 import Split
+    from cs744_ddp_tpu_torch.models import vgg
+    from cs744_ddp_tpu_torch.ops.sgd import SGDConfig
+    from cs744_ddp_tpu_torch.train import loop
+    from cs744_ddp_tpu_torch.train.step import state_tensors
+
+    vgg.CFG["VGGT"] = NARROW_VGG
+    loop.WINDOW = task["window"]
+    results = {}
+    for path, per_step in (("window", False), ("per-step", True)):
+        tr = loop.Trainer("vggt", task["strategy"],
+                          global_batch=task["global_batch"], data_dir=ASSETS,
+                          device="cpu", sgd_cfg=SGDConfig(lr=task["lr"]),
+                          host_augment=True, profile_phases=per_step,
+                          log=lambda s: None)
+        n = task["examples"]
+        tr.train_split = Split(tr.train_split.images[:n],
+                               tr.train_split.labels[:n])
+        rows, tails = [], []
+        assemble, step_fetch = tr._assemble, tr._step_fetch
+
+        def record_assemble(chunks, start, tr=tr, assemble=assemble):
+            w = assemble(chunks, start)
+            rows.append(tr.train_window().images[:w].clone().numpy())
+            return w
+
+        def record_step(x, y, epoch, it, step_fetch=step_fetch):
+            if x.shape[0] < tr.per_rank_batch:
+                tails.append(x.clone().numpy())
+            return step_fetch(x, y, epoch, it)
+
+        tr._assemble, tr._step_fetch = record_assemble, record_step
+        tr.train_model(0)
+        pre = f"{path}/"
+        if rows:
+            results[pre + "rows"] = np.concatenate(rows)
+        results[pre + "tail"] = tails[0]
+        results[pre + "losses"] = np.array(tr.last_epoch_timers.losses)
+        for i, t in enumerate(state_tensors(tr.state)):
+            results[f"{pre}state/{i}"] = t.contiguous().numpy()
+    np.savez(os.path.join(outdir, f"host_r{rank}.npz"), **results)
+
+
 TASKS = {"strategies": task_strategies, "step": task_step,
          "counts": task_counts, "single": task_single,
-         "window": task_window, "resume": task_resume, "guard": task_guard}
+         "window": task_window, "resume": task_resume, "guard": task_guard,
+         "host": task_host}
 
 
 def main() -> None:
