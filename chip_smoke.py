@@ -136,11 +136,30 @@ Phases, in order; any failure exits non-zero:
                bitwise the healthy run; and the steady step of the
                host-augment and the device-augment windowed paths, f32 and
                bf16, whole 100-step epochs in turns;
-  9. report  — the ``kernels`` JSON line (each kernel in f32, with the
+  9. elastic — ``--elastic strong`` on VGG-11 f32, batch 256 in S = 4
+               microshards of 64, ``allreduce``, augmentation on,
+               deterministic cuDNN: a world-1 strong Trainer's 60-step
+               windowed epoch (each step a replay of the captured
+               microshard step): falling finite losses, one
+               ``all_gather`` a step and no other collective, each
+               bnpool kernel run 20 times a step on the device, the
+               steady step and images/s against the non-elastic windowed
+               step of the same tree (whole epochs in turns); virtual
+               worlds 2 and 4 on the card (each rank's rows from its
+               microshards, concatenated in rank order in place of the
+               gather) bitwise the world-1 Trainer's state after 20
+               steps; the CLI (``--num-devices 1 --elastic strong
+               --checkpoint-dir D --chaos preempt:25``, then the same
+               command without the fault) bitwise an uninterrupted CLI
+               run; with two or more GPUs the CLI at world 2 with
+               ``--chaos rank_death:25:1``, shrinking to world 1 and
+               ending bitwise that uninterrupted world-1 run, and the CLI
+               at world ``min(4, count)`` bitwise it too;
+ 10. report  — the ``kernels`` JSON line (each kernel in f32, with the
                main path's runs, and in bf16, with the VGG-11 bf16 path's;
-               ``launches_by_path`` also holds the host path's runs),
-               the card's name and power limit, and as the last line
-               ``{"ok": true, "device": {...}}``.
+               ``launches_by_path`` also holds the host and elastic paths'
+               runs), the card's name and power limit, and as the last
+               line ``{"ok": true, "device": {...}}``.
 
 ``--time-only`` runs phases 1 and 3 and stops.  ``--root DIR`` times the
 kernels of the checkout at DIR instead (for example the parent commit,
@@ -204,6 +223,8 @@ FT_STEPS = 60                   # phase ft: three 20-step windows
 HOST_STEPS = 40                 # phase host: the bitwise path checks
 HOST_FT_STEPS = 60              # phase host: staging chaos
 HOST_TIME_STEPS = 100           # phase host: timing, steps 21-100 steady
+ELASTIC_STEPS = 60              # phase elastic: three 20-step windows
+MICROSHARDS = 4
 EVAL_FT = 2
 EPOCH_ROWS = 50000              # the training split: 195 batches + 80 rows
 EVAL_BATCHES = 5
@@ -897,18 +918,31 @@ def free_port():
 
 def run_cli(args, label, timeout=600):
     """``python -m cs744_ddp_tpu_torch.cli ARGS`` in a session of its own
-    (a timeout kills the ranks it spawned); its stdout, or a failure."""
+    (a timeout kills the ranks it spawned); its stdout, or a failure.  On
+    a timeout every process of the session first dumps its threads'
+    Python stacks (faulthandler, on SIGABRT), and the failure carries the
+    output's tails."""
     cmd = [sys.executable, "-m", "cs744_ddp_tpu_torch.cli"] + list(args)
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True,
                             start_new_session=True,
+                            env={**os.environ, "PYTHONFAULTHANDLER": "1"},
                             cwd=os.path.dirname(os.path.abspath(__file__)))
     try:
         stdout, stderr = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        raise SmokeFailure(f"{label}: no end in {timeout} s")
+        os.killpg(proc.pid, signal.SIGABRT)
+        try:
+            stdout, stderr = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            stdout, stderr = proc.communicate()
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        raise SmokeFailure(f"{label}: no end in {timeout} s:\n"
+                           f"{stdout[-4000:]}\n{stderr[-12000:]}")
     check(proc.returncode == 0, f"{label} failed:\n"
           f"{stdout[-3000:]}\n{stderr[-3000:]}")
     return stdout
@@ -1760,6 +1794,223 @@ def phase_host(card_line):
     return paths
 
 
+def elastic_trainer(steps=ELASTIC_STEPS, elastic="strong", **kw):
+    """A fresh VGG-11 ``allreduce`` Trainer of phase elastic on a world-1
+    NCCL group: ``steps`` augmented batches, strong scaling at S = 4
+    (``elastic=None``: the non-elastic step of the same tree)."""
+    from cs744_ddp_tpu_torch.train.loop import Trainer
+    return Trainer(model="vgg11", strategy="allreduce", global_batch=BATCH,
+                   augment=True, limit_train_batches=steps,
+                   limit_eval_batches=EVAL_FT, log=lambda s: None,
+                   elastic=elastic, **kw)
+
+
+def virtual_world_state(world, steps):
+    """A fresh strong Trainer's model trained ``steps`` eager steps by
+    ``world`` virtual ranks on this card: rank r's rows from its k
+    microshards (its contiguous columns of the canonical batch), the rows
+    concatenated in rank order in place of the gather, then one combine.
+    The trained Trainer, and the kernels' runs in those steps."""
+    from cs744_ddp_tpu_torch.elastic import MicroshardStep
+    from cs744_ddp_tpu_torch.ops import bnpool
+    tr = elastic_trainer(steps)
+    staged = tr._stage_train_epoch(0)
+    ranks = [MicroshardStep(tr.state.model, tr.sgd_cfg,
+                            microshards=MICROSHARDS, world=world, rank=r,
+                            augment=True, seed=tr.seed)
+             for r in range(world)]
+    per = BATCH // world
+    epoch = torch.zeros((), dtype=torch.int64, device=tr.device)
+    bnpool.reset_launch_counts()
+    for b in range(steps):
+        idx = torch.full((), b, dtype=torch.int64, device=tr.device)
+        rows = [ranks[r].local_rows(staged.images[b, r * per:(r + 1) * per],
+                                    staged.labels[b, r * per:(r + 1) * per],
+                                    epoch, idx).clone()
+                for r in range(world)]
+        ranks[0].combine(tr.state, torch.cat(rows))
+    torch.cuda.synchronize()
+    return tr, bnpool.executed_counts()
+
+
+def cli_save(tmp, name, args, label, timeout=600):
+    """The elastic CLI with ``--save`` into ``tmp/name``; its stdout and
+    rank 0's saved state_dict."""
+    out = run_cli(["--elastic", "strong", "--limit-train-batches",
+                   str(ELASTIC_STEPS), "--limit-eval-batches", str(EVAL_FT),
+                   "--checkpoint-dir", os.path.join(tmp, "ck_" + name),
+                   "--save", os.path.join(tmp, name)] + args, label,
+                  timeout=timeout)
+    path = os.path.join(tmp, name, "rank0.pt")
+    return out, torch.load(path, map_location="cpu") \
+        if os.path.exists(path) else None
+
+
+def check_same_save(label, got, want):
+    check(got is not None and list(got) == list(want),
+          f"{label}: no --save or other keys")
+    for k, v in want.items():
+        check(torch.equal(got[k], v), f"{label}: {k} differs")
+    return len(want)
+
+
+def elastic_cli(card_line):
+    """Phase elastic's CLI runs (steps 3 and 4 of the module docstring):
+    at world 1 a ``preempt:25`` run, the command again without the fault,
+    and an uninterrupted run, the resumed ``--save`` bitwise the
+    uninterrupted one's; with two or more GPUs the world-2 ladder
+    (``rank_death:25:1``) and an uninterrupted run at world
+    ``min(4, count)``, each ``--save`` bitwise the world-1 run's."""
+    with tempfile.TemporaryDirectory() as tmp:
+        one = ["--num-devices", "1"]
+        out, _ = cli_save(tmp, "cut", one + ["--chaos", "preempt:25"],
+                          "elastic CLI preempt")
+        check("Preempted at epoch 0 step 40; emergency checkpoint saved"
+              in out and "elastic report: " in out,
+              f"elastic CLI preempt: {out[-2000:]}")
+        out, cut = cli_save(tmp, "cut", one, "elastic CLI resume")
+        check("Resumed from mid-epoch checkpoint: epoch 0, step 40" in
+              out, f"elastic CLI resume: {out[-2000:]}")
+        _, full = cli_save(tmp, "full", one, "elastic CLI uninterrupted")
+        n = check_same_save("elastic CLI resume", cut, full)
+        print(f"[elastic] CLI --num-devices 1 --elastic strong "
+              f"--chaos preempt:25: saved at 40; the command again "
+              f"resumed there; --save bitwise equal to an uninterrupted "
+              f"run's ({n} tensors)  ok  [{card_line}]")
+        count = torch.cuda.device_count()
+        if count < 2:
+            print(f"[elastic] the world-2 rank_death ladder through the "
+                  f"CLI was not run on this machine: {count} GPU")
+            return
+        t0 = time.perf_counter()
+        out, died = cli_save(tmp, "ladder", [
+            "--num-devices", "2", "--chaos", "rank_death:25:1"],
+            "elastic CLI ladder")
+        check("shrinking world 2 -> 1" in out,
+              f"elastic CLI ladder: {out[-2000:]}")
+        n = check_same_save("elastic CLI ladder", died, full)
+        print(f"[elastic] CLI --num-devices 2 --elastic strong "
+              f"--chaos rank_death:25:1: rank 1 died at 40, shrinking "
+              f"world 2 -> 1, resumed; --save bitwise equal to the "
+              f"uninterrupted world-1 run's ({n} tensors); "
+              f"{time.perf_counter() - t0:.1f} s  ok  [{card_line}]")
+        world = min(4, count)
+        out, wide = cli_save(tmp, f"w{world}",
+                             ["--num-devices", str(world)],
+                             f"elastic CLI world {world}")
+        n = check_same_save(f"elastic CLI world {world}", wide, full)
+        print(f"[elastic] CLI --num-devices {world} --elastic strong "
+              f"({world} NCCL processes): --save bitwise equal to the "
+              f"world-1 run's ({n} tensors)  ok  [{card_line}]")
+
+
+def phase_elastic(card_line):
+    """``--elastic strong``; see the module docstring.  Returns each
+    path's kernel runs."""
+    import torch.distributed as dist
+    from cs744_ddp_tpu_torch.elastic import MicroshardStep
+    from cs744_ddp_tpu_torch.ops import bnpool
+    from cs744_ddp_tpu_torch.train.step import WARMUP_ITERS
+
+    check(not dist.is_initialized(), "a process group exists already")
+    t_phase = time.perf_counter()
+    paths = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        # 1. The main path: a 60-step windowed epoch of the strong step.
+        strong = elastic_trainer()
+        check(isinstance(strong.train_window().body, MicroshardStep),
+              "the strong Trainer's window does not run the microshard "
+              "step")
+        bnpool.reset_launch_counts()
+        strong.train_model(0)
+        torch.cuda.synchronize()
+        runs, launches = kernel_counts()
+        paths[f"elastic/window ({ELASTIC_STEPS} steps, S={MICROSHARDS})"] \
+            = runs
+        first, second = check_losses("elastic", strong.last_epoch_timers
+                                     .losses, ELASTIC_STEPS)
+        per_step = 5 * MICROSHARDS
+        want_runs = variants("f32", per_step * (WARMUP_ITERS +
+                                                ELASTIC_STEPS))
+        want_launches = variants("f32", per_step * (WARMUP_ITERS + 1))
+        check(runs == want_runs, f"elastic: kernels ran {runs} times on the "
+              f"device, want {want_runs}")
+        check(launches == want_launches, f"elastic: wrappers launched "
+              f"{launches}, want {want_launches}")
+        counts = dict(strong.group.total_counts)
+        check(counts == {"all_gather": ELASTIC_STEPS} and
+              dict(strong.group.step_counts) == {"all_gather": 1},
+              f"elastic: collectives {counts}, last step "
+              f"{dict(strong.group.step_counts)}")
+        body = strong.train_window().body
+        gather_bytes = 4 * body.row_len * MICROSHARDS
+        plain = elastic_trainer(elastic=None)
+        plain.train_model(0)
+        ms = {"strong": [], "plain": []}
+        for i, (which, tr) in enumerate((("strong", strong),
+                                         ("plain", plain),
+                                         ("plain", plain),
+                                         ("strong", strong))):
+            timers = tr.train_model(1 + i)
+            torch.cuda.synchronize()
+            ms[which].append(steady(timers)[0])
+        s_ms, p_ms = (statistics.mean(ms[k]) for k in ("strong", "plain"))
+        print(f"[elastic] vgg11 f32 allreduce --elastic strong, world 1 "
+              f"NCCL, S={MICROSHARDS} microshards of {BATCH // MICROSHARDS}:"
+              f" {ELASTIC_STEPS} windowed steps (graph replays), loss "
+              f"{first:.4f} -> {second:.4f}; collectives {counts} "
+              f"(1 all_gather a step); kernel runs {runs} "
+              f"({per_step} a step on the device: {WARMUP_ITERS} warm-up "
+              f"steps + {ELASTIC_STEPS} replays), wrapper launches "
+              f"{launches}; gather {gather_bytes} bytes a step "
+              f"({MICROSHARDS} rows of {body.row_len} f32)  ok  "
+              f"[{card_line}]")
+        print(f"[elastic] steady step (steps 21-{ELASTIC_STEPS}, whole "
+              f"epochs in turns strong, plain, plain, strong; deterministic "
+              f"cuDNN): strong {s_ms:.4f} ms ({ms['strong'][0]:.4f}, "
+              f"{ms['strong'][1]:.4f}), {BATCH / s_ms * 1e3:.1f} images/s; "
+              f"non-elastic allreduce {p_ms:.4f} ms ({ms['plain'][0]:.4f}, "
+              f"{ms['plain'][1]:.4f}), {BATCH / p_ms * 1e3:.1f} images/s; "
+              f"strong / non-elastic {s_ms / p_ms:.4f}  [{card_line}]")
+        del strong, plain
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 2. Virtual worlds 2 and 4 against the world-1 Trainer.
+        ref = elastic_trainer(BITWISE_STEPS)
+        ref.train_model(0)
+        torch.cuda.synchronize()
+        want = ref.state
+        for world in (2, 4):
+            got, vruns = virtual_world_state(world, BITWISE_STEPS)
+            n = check_same_state(f"elastic virtual world {world}", got, ref)
+            check(vruns == variants("f32", per_step * BITWISE_STEPS),
+                  f"elastic virtual world {world}: kernel runs {vruns}")
+            paths[f"elastic/virtual world {world} ({BITWISE_STEPS} eager "
+                  f"steps)"] = vruns
+            print(f"[bitwise] elastic virtual world {world} on one card "
+                  f"({world} ranks of {MICROSHARDS // world} microshard(s), "
+                  f"rows concatenated in rank order): {BITWISE_STEPS} eager "
+                  f"steps bitwise equal to the world-1 strong Trainer's "
+                  f"{BITWISE_STEPS} windowed steps ({n} tensors); kernel "
+                  f"runs {vruns}  ok")
+            del got
+        del ref, want
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        elastic_cli(card_line)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print(f"[elastic] phase elastic: {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--time-only", action="store_true",
@@ -1802,6 +2053,7 @@ def main(argv=None) -> int:
     by_path.update(model_paths)
     by_path.update(phase_ft(card_line))
     by_path.update(phase_host(card_line))
+    by_path.update(phase_elastic(card_line))
 
     replaces = {"bnpool_sums": "cs744_ddp_tpu/ops/bnpool_pallas.py:147",
                 "bnpool_dx": "cs744_ddp_tpu/ops/bnpool_pallas.py:184"}
@@ -1836,8 +2088,11 @@ def main(argv=None) -> int:
           f"the device for each dtype apart (the paths' steps in their "
           f"names, else {TRAIN_STEPS}; host paths: the epoch's 195 steps "
           f"and tail, {HOST_STEPS} steps, and a captured {HOST_TIME_STEPS}-"
-          f"step bf16 epoch; window: 3 warm-up steps and graph replays, "
-          f"per-step: eager); the bf16 max_abs_err of dx is over the "
+          f"step bf16 epoch; elastic: {5 * MICROSHARDS} runs a step, "
+          f"{ELASTIC_STEPS} replays and the virtual worlds' "
+          f"{BITWISE_STEPS} eager steps; window: 3 warm-up steps and graph "
+          f"replays, per-step: eager); the bf16 max_abs_err of dx is over "
+          f"the "
           f"elements "
           f"outside the near-tie routing flips that phase 2 bounds")
     print(json.dumps({"kernels": kernels}))

@@ -13,6 +13,9 @@ GPU, with the reference training script's print schedule.
     python -m cs744_ddp_tpu_torch.cli --nonfinite skip --chaos nonfinite_grad:30
     # the crop/flip in the C++ host pipeline, staging supervised:
     python -m cs744_ddp_tpu_torch.cli --host-augment --chaos producer_crash:30
+    # elastic: a rank death at world 2 shrinks the run to world 1, bitwise:
+    python -m cs744_ddp_tpu_torch.cli --num-devices 2 --elastic strong \
+        --checkpoint-dir ckpt --chaos rank_death:25:1
     # one process per node, the reference's launch:
     python -m cs744_ddp_tpu_torch.cli --master HOST --num-nodes 2 --rank 0
 
@@ -40,25 +43,43 @@ failed build raises): a producer thread stages each window's uint8
 batches through pinned memory in chunks, copied to the card while the
 previous window trains.  The ``--ft-*`` flags supervise that staging.
 ``--require-real-data`` refuses the synthetic stand-in.
+
+``--elastic weak|strong`` (with ``--checkpoint-dir``) trains under the
+elastic coordinator (``elastic/coordinator.py``): each membership
+generation is a fresh launch of one process per member GPU (gloo
+processes with ``--device cpu``) on a fresh rendezvous port; a
+``rank_death`` saves an emergency checkpoint and the next generation
+resumes it at a smaller world.  ``--resume-world M`` starts at world M (a
+checkpoint of any world is re-planned onto it).  The last line is
+``elastic report: {json}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
-from typing import Optional, Sequence
+import socket
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from .device import resolve_device
 from .data import cifar10, native
+from .elastic import ElasticConfig, ElasticCoordinator, Generation
 from .ft import FTConfig, POLICIES, ChaosPlan, check_sites
 from .models import get_model
 from .ops import _build
 from .ops.sgd import SGDConfig
-from .parallel.mesh import DEFAULT_PORT, initialize_distributed
-from .train.loop import GLOBAL_BATCH, PRECISIONS, STRATEGIES, Trainer
+from .parallel.mesh import (DEFAULT_PORT, destroy_distributed,
+                            initialize_distributed, probe_devices)
+from .train.loop import (GLOBAL_BATCH, PRECISIONS, STRATEGIES, Trainer,
+                         elastic_config)
+
+# The file in the checkpoint directory where rank 0 of an elastic
+# generation reports how the generation ended.
+GENERATION_REPORT = "elastic_generation.json"
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -165,7 +186,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "boundary at or after it; requires "
                         "--checkpoint-dir); with --host-augment also the "
                         "staging sites producer_crash, put_delay, "
-                        "put_fail and corrupt_slot")
+                        "put_fail and corrupt_slot.  Rank-level sites "
+                        "(the third field is the target RANK, not a seed "
+                        "— SITE:step:rank): rank_death, slow_rank; "
+                        "coordinator_loss fires on recovery progress "
+                        "(requires --elastic)")
     p.add_argument("--ft-put-timeout", type=float, default=30.0,
                    metavar="SECONDS",
                    help="watchdog deadline on each staged chunk device_put")
@@ -181,6 +206,18 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="checksum every staged batch at fill time and "
                         "re-stage any row whose bytes changed by transfer "
                         "time (auto-enabled by corrupt_slot chaos)")
+    p.add_argument("--elastic", default="off",
+                   choices=["off", "weak", "strong"],
+                   help="weak = pinned per-chip batch (global batch scales "
+                        "with the world; deterministic, example-measured "
+                        "resume); strong = pinned global batch re-bucketed "
+                        "across the world with bitwise world-invariant "
+                        "math (microshard step, elastic/step_elastic.py)")
+    p.add_argument("--resume-world", type=int, default=None, metavar="M",
+                   help="run/resume at world size M (overrides "
+                        "--num-devices): checkpointed progress from any "
+                        "previous world is re-planned onto M under the "
+                        "--elastic protocol")
     return p.parse_args(argv)
 
 
@@ -197,7 +234,7 @@ def ft_config_from_args(args: argparse.Namespace) -> Optional[FTConfig]:
         return None
     try:
         plan = ChaosPlan.parse(args.chaos)
-        check_sites(plan, args.host_augment)
+        check_sites(plan, args.host_augment, args.elastic != "off")
     except ValueError as e:
         raise SystemExit(str(e)) from None
     if plan.steps("nonfinite_grad") and args.nonfinite == "off":
@@ -212,7 +249,11 @@ def ft_config_from_args(args: argparse.Namespace) -> Optional[FTConfig]:
                     verify_chunks=args.ft_verify_chunks)
 
 
-def _train(args: argparse.Namespace) -> None:
+def _train(args: argparse.Namespace,
+           ft: Optional[FTConfig] = None) -> Trainer:
+    """Build the Trainer the flags describe (``ft``: the fault-tolerance
+    config, default the flags'), run it, and ``--save`` unless it was
+    stopped by a preemption or a rank death."""
     if args.deterministic:
         torch.backends.cudnn.deterministic = True
     trainer = Trainer(
@@ -225,12 +266,15 @@ def _train(args: argparse.Namespace) -> None:
         limit_train_batches=args.limit_train_batches,
         limit_eval_batches=args.limit_eval_batches,
         profile_phases=args.profile_phases, metrics_ring=args.metrics_ring,
-        ft=ft_config_from_args(args), host_augment=args.host_augment)
+        ft=ft_config_from_args(args) if ft is None else ft,
+        host_augment=args.host_augment,
+        elastic=None if args.elastic == "off" else args.elastic)
     trainer.run(args.epochs, checkpoint_dir=args.checkpoint_dir)
-    if args.save and not trainer.preempted:
+    if args.save and not trainer.preempted and trainer.rank_death is None:
         os.makedirs(args.save, exist_ok=True)
         torch.save(trainer.state.model.state_dict(),
                    os.path.join(args.save, f"rank{trainer.rank}.pt"))
+    return trainer
 
 
 def _spawned_rank(local: int, args: argparse.Namespace) -> None:
@@ -245,7 +289,109 @@ def _spawned_rank(local: int, args: argparse.Namespace) -> None:
     try:
         _train(args)
     finally:
-        dist.destroy_process_group()
+        destroy_distributed()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _elastic_threads(args: argparse.Namespace, world: int) -> int:
+    """A CPU rank's thread count.  The CPU's weight-gradient reductions
+    give other bits on another thread count, so under strong scaling every
+    rank of every generation takes the same count, whatever the world:
+    the cores over the microshards (a world never exceeds them)."""
+    if args.elastic == "strong":
+        return max(1, (os.cpu_count() or 1) // ElasticConfig().microshards)
+    return max(1, (os.cpu_count() or 1) // world)
+
+
+def _elastic_rank(local: int, args: argparse.Namespace, world: int,
+                  members: Tuple[int, ...], chaos: List[str],
+                  port: int) -> None:
+    """Rank ``local`` of one elastic generation, on local device
+    ``members[local]``; rank 0 writes the generation's report."""
+    device = resolve_device(args.device)
+    if device.type == "cpu":
+        torch.set_num_threads(_elastic_threads(args, world))
+    initialize_distributed("127.0.0.1", world, local, port, args.device,
+                           local_rank=members[local])
+    try:
+        ft = ft_config_from_args(args)
+        if ft is not None:
+            ft = ft._replace(chaos=ChaosPlan.parse(chaos))
+        trainer = _train(args, ft)
+        report = {"rank_death": trainer.rank_death,
+                  "fired": getattr(trainer.chaos, "fired", [])}
+        del trainer
+        if dist.get_rank() == 0:
+            path = os.path.join(args.checkpoint_dir, GENERATION_REPORT)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            with open(tmp, "w") as f:
+                json.dump(report, f)
+            os.replace(tmp, path)
+    finally:
+        destroy_distributed()
+
+
+def _launch_generation(args: argparse.Namespace, world: int,
+                       members: Tuple[int, ...], epochs: int,
+                       checkpoint_dir: str, chaos: List[str]) -> Generation:
+    """One membership generation: ``world`` processes on a fresh
+    rendezvous port, joined; rank 0's report."""
+    path = os.path.join(checkpoint_dir, GENERATION_REPORT)
+    if os.path.exists(path):
+        os.unlink(path)
+    gen_args = argparse.Namespace(**{**vars(args), "epochs": epochs,
+                                     "checkpoint_dir": checkpoint_dir})
+    torch.multiprocessing.spawn(
+        _elastic_rank, args=(gen_args, world, tuple(members), chaos,
+                             _free_port()), nprocs=world, join=True)
+    with open(path) as f:
+        report = json.load(f)
+    death = report["rank_death"]
+    return Generation(None if death is None else tuple(death),
+                      tuple(tuple(e) for e in report["fired"]))
+
+
+def elastic_main(args: argparse.Namespace) -> dict:
+    """--elastic: train under the ``ElasticCoordinator``'s degradation
+    ladder, one launch of ``world`` local processes per generation;
+    ``--resume-world M`` starts (or resumes a checkpointed run) at world
+    M.  Requires --checkpoint-dir: recovery and resize both go through the
+    emergency checkpoint.  Prints and returns the coordinator's report."""
+    if args.checkpoint_dir is None:
+        raise SystemExit("--elastic requires --checkpoint-dir (recovery "
+                         "and world-resize resume go through checkpoints)")
+    if args.num_nodes > 1:
+        raise SystemExit("--elastic runs the ranks of one host: its "
+                         "coordinator launches every generation's processes "
+                         "itself (as the reference's coordinator builds "
+                         "every world in one process); --num-nodes must "
+                         "be 1")
+    device = resolve_device(args.device)
+    world = args.resume_world or args.num_devices or (
+        torch.cuda.device_count() if device.type == "cuda" else 1)
+    if world < 1:
+        raise SystemExit("--resume-world must be >= 1")
+    if device.type == "cuda":
+        if world > torch.cuda.device_count():
+            raise SystemExit(f"elastic world {world}: only "
+                             f"{torch.cuda.device_count()} GPUs present")
+        _build.build()      # once here, not once per rank
+    ft = ft_config_from_args(args)
+    coord = ElasticCoordinator(
+        lambda w, members, epochs, ckdir, chaos: _launch_generation(
+            args, w, members, epochs, ckdir, chaos),
+        world=world, global_batch=args.batch_size, protocol=args.elastic,
+        chaos=ft.chaos if ft is not None else ChaosPlan.parse(None),
+        probe=lambda members: probe_devices(members, device.type))
+    coord.run(args.epochs, checkpoint_dir=args.checkpoint_dir)
+    report = coord.report()
+    print("elastic report: " + json.dumps(report))
+    return report
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -257,7 +403,22 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             f"{args.data_dir}/cifar-10-batches-py/data_batch_*); "
             "refusing to fall back to the synthetic stand-in")
     get_model(args.model)     # an unknown name fails here, not in each rank
-    ft_config_from_args(args)     # so does a refused fault-tolerance config
+    ft = ft_config_from_args(args)    # so does a refused ft config
+    if args.resume_world is not None and args.elastic == "off":
+        raise SystemExit("--resume-world requires --elastic (weak|strong): "
+                         "without a declared protocol there is no defined "
+                         "mapping of saved progress onto a new world size")
+    if args.elastic != "off":
+        try:                  # and a refused elastic config
+            elastic_config(args.elastic, args.batch_size,
+                           host_augment=args.host_augment,
+                           profile_phases=args.profile_phases,
+                           nonfinite_guard=ft is not None
+                           and ft.nonfinite != "off")
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+        elastic_main(args)
+        return
     if args.num_devices is None:
         if args.num_nodes > 1:
             initialize_distributed(args.master, args.num_nodes, args.rank,
@@ -266,7 +427,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             _train(args)
         finally:
             if dist.is_initialized():     # also the Trainer's world-1 group
-                dist.destroy_process_group()
+                destroy_distributed()
         return
     if args.num_devices < 1:
         raise SystemExit("--num-devices must be >= 1")

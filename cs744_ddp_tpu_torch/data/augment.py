@@ -108,14 +108,19 @@ def stream_key(seed: int, rank: int) -> int:
     return _mix32(h ^ (rank & _M32))
 
 
-def draws(n: int, key: int, epoch: torch.Tensor, idx: torch.Tensor
-          ) -> Tuple[torch.Tensor, torch.Tensor]:
+def draws(n: int, key: int, epoch: torch.Tensor, idx: torch.Tensor,
+          micro: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(offsets [n,2] int64 in [0,8], flips [n] bool) of the batch at
     absolute index ``idx`` of ``epoch`` (int64 0-d tensors on the device the
     draws are made on), for the stream ``key`` (``stream_key``).  Row r's
-    draws depend on (key, epoch, idx, r) alone."""
+    draws depend on (key, epoch, idx, r) alone.  ``micro``, the global
+    microshard index of the elastic step (``elastic/step_elastic.py``), is
+    folded in after the batch index, as the reference's elastic window
+    folds it after the batch index: then row r is the microshard's row."""
     h = _mix32((epoch & _M32) ^ key)
     h = _mix32((idx & _M32) ^ h)
+    if micro is not None:
+        h = _mix32((micro & _M32) ^ h)
     rows = torch.arange(n, dtype=torch.int64, device=idx.device)
     base = _mix32(_mix32(rows) ^ h)
     lanes = torch.arange(1, 4, dtype=torch.int64, device=idx.device)
@@ -125,11 +130,11 @@ def draws(n: int, key: int, epoch: torch.Tensor, idx: torch.Tensor
 
 def augment(images_u8: torch.Tensor, key: int, epoch: torch.Tensor,
             idx: torch.Tensor,
-            stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-            ) -> torch.Tensor:
+            stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+            micro: Optional[int] = None) -> torch.Tensor:
     """Random pad-4 crop + hflip + normalize of a uint8 [N,32,32,3] batch,
     drawn by ``draws``."""
-    offsets, flips = draws(images_u8.shape[0], key, epoch, idx)
+    offsets, flips = draws(images_u8.shape[0], key, epoch, idx, micro)
     return normalize(crop_flip(images_u8, offsets, flips), stats)
 
 

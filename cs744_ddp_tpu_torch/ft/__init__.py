@@ -13,9 +13,12 @@ The staging sites (``producer_crash``, ``put_delay``, ``put_fail``,
 on the chunked host-augment pipeline (``train/loop.py``,
 ``ft/supervisor.py``), so a plan that names a staging site is refused on a
 Trainer without ``host_augment``, where the reference would never fire it.
-The rank, replica and publish sites need the elastic, serving and
-publishing layers, which are not ported yet: the Trainer refuses a plan
-that names them (``check_sites``).
+The rank sites (``rank_death``, ``slow_rank``) fire at the Trainer's
+window boundaries (``Trainer._rank_boundary``) and ``coordinator_loss`` in
+the elastic coordinator (``elastic/coordinator.py``), so it is accepted
+only under ``elastic``.  The replica and publish sites need the serving
+and publishing layers, which are not ported yet: the Trainer refuses a
+plan that names them (``check_sites``).
 """
 
 from __future__ import annotations
@@ -31,15 +34,13 @@ from .supervisor import (StagingStalled, Watchdog, batch_checksums,
 
 # The sites that fire on the host-augment staging pipeline only.
 STAGING_SITES = ("producer_crash", "put_delay", "put_fail", "corrupt_slot")
-# The sites the port's Trainer fires.
-FIRED_SITES = STAGING_SITES + ("nonfinite_grad", "preempt")
+# The sites the port fires: its Trainer, and the elastic coordinator
+# (coordinator_loss).
+FIRED_SITES = STAGING_SITES + ("nonfinite_grad", "preempt") + RANK_SITES \
+    + ("coordinator_loss",)
 # Every other site, by the ROADMAP queue 1 item that brings its layer.
-_LATER = {
-    **dict.fromkeys(RANK_SITES + ("coordinator_loss",),
-                    "queue 1 item 3 (elastic)"),
-    **dict.fromkeys(REPLICA_SITES + PUBLISH_SITES,
-                    "queue 1 item 5 (serving and publishing)"),
-}
+_LATER = dict.fromkeys(REPLICA_SITES + PUBLISH_SITES,
+                       "queue 1 item 5 (serving and publishing)")
 
 
 class FTConfig(NamedTuple):
@@ -62,6 +63,9 @@ class FTConfig(NamedTuple):
                         (on by itself when the chaos plan corrupts slots).
     degrade_staging   : start in the degraded synchronous staging mode
                         (measures the fallback).
+    slow_rank_stall_s : stall injected per ``slow_rank`` chaos entry and
+                        added to the target rank's step-time gauge (the
+                        straggler detector must flag it).
     """
 
     nonfinite: str = "off"
@@ -73,12 +77,15 @@ class FTConfig(NamedTuple):
     producer_restarts: int = 1
     verify_chunks: bool = False
     degrade_staging: bool = False
+    slow_rank_stall_s: float = 0.25
 
 
-def check_sites(chaos, host_augment: bool = False) -> None:
-    """Refuse a plan that names a site the Trainer would not fire: one the
-    port has not ported yet, or a staging site without ``host_augment``.
-    Either would be accepted and then never fire."""
+def check_sites(chaos, host_augment: bool = False,
+                elastic: bool = False) -> None:
+    """Refuse a plan that names a site the run would not fire: one the
+    port has not ported yet, a staging site without ``host_augment``, or
+    ``coordinator_loss`` without ``elastic`` (no coordinator runs).  Each
+    would be accepted and then never fire."""
     for entry in chaos.spec():
         site = entry["site"]
         if site not in FIRED_SITES:
@@ -89,6 +96,10 @@ def check_sites(chaos, host_augment: bool = False) -> None:
             raise ValueError(
                 f"chaos site {site!r} fires on the host-augment staging "
                 f"pipeline only: it needs host_augment (--host-augment)")
+        if site == "coordinator_loss" and not elastic:
+            raise ValueError(
+                "chaos site 'coordinator_loss' fires in the elastic "
+                "coordinator only: it needs elastic (--elastic weak|strong)")
 
 
 __all__ = [

@@ -3,9 +3,12 @@
 A copy of the reference package's ``ft/chaos.py``, with the same sites,
 spec grammar and ``rng`` draws, so that one spec means the same faults in
 both packages.  The port's ``Trainer`` fires ``nonfinite_grad``,
-``preempt`` and, with ``host_augment``, the four staging sites; it
-refuses a plan that names any other site (``ft.check_sites``), since the
-layers those sites exercise are not ported yet.
+``preempt``, ``rank_death``, ``slow_rank`` and, with ``host_augment``,
+the four staging sites; the elastic coordinator fires
+``coordinator_loss``.  A plan that names a replica or publish site is
+refused (``ft.check_sites``): those layers are not ported yet.
+``pending`` (the port's own) hands the unfired entries to the processes
+of the next elastic generation.
 
 A chaos plan is a list of ``(site, step, seed)`` entries — parsed from CLI
 specs ``SITE:step[:seed]`` or built programmatically — that fire EXACTLY
@@ -256,6 +259,14 @@ class ChaosPlan:
         """Manifest-shaped view of the plan (site/step/seed per entry)."""
         return [{"site": e["site"], "step": e["step"], "seed": e["seed"]}
                 for e in self._entries]
+
+    def pending(self) -> List[str]:
+        """The entries that have not fired, as CLI specs
+        ``SITE:step:seed``: the plan a process launched after this one
+        gets (the elastic coordinator's next generation)."""
+        with self._lock:
+            return [f"{e['site']}:{e['step']}:{e['seed']}"
+                    for e in self._entries if not e["fired"]]
 
     def rng(self, site: str, step: int):
         """Seeded generator for an entry's fault payload (corruption byte

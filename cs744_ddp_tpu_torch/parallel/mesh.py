@@ -11,12 +11,18 @@ over ``torch.distributed`` (``Part 2a/main.py:148-153``: MASTER_ADDR, port
 A process that no launcher started gets a world-1 group in the process
 (``initialize_distributed()`` with no address), so every strategy runs on
 one card, as the reference package runs ``allreduce`` on a 1-device mesh.
+
+The elastic coordinator's device helpers are here too: ``probe_devices``
+(a round trip to each member's device) and ``surviving_members`` (the
+devices of the next, smaller world), the reference's ``probe_devices``
+and ``shrink_mesh``.
 """
 
 from __future__ import annotations
 
+import gc
 from collections import Counter
-from typing import List, Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -79,6 +85,18 @@ def initialize_distributed(master: Optional[str] = None,
     return dev
 
 
+def destroy_distributed() -> None:
+    """Destroy the default process group once nothing holds its
+    collectives: the Trainers of this process, whose captured CUDA graphs
+    hold NCCL kernels (a window's graph and its step form a reference
+    cycle, so they are collected here), are gone first, and the device is
+    idle.  The caller drops its references to them before."""
+    gc.collect()
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    dist.destroy_process_group()
+
+
 def _current(dev: torch.device) -> torch.device:
     if dev.type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
@@ -105,7 +123,8 @@ class Group:
     captured step's counts (``add_replayed``), so that both counts mean
     collectives executed on either path."""
 
-    KINDS = ("all_reduce", "all_reduce_max", "gather", "scatter")
+    KINDS = ("all_reduce", "all_reduce_max", "gather", "scatter",
+             "all_gather")
 
     def __init__(self, device: Optional[torch.device] = None):
         if not dist.is_initialized():
@@ -154,3 +173,53 @@ class Group:
         """Rank r receives rank 0's ``chunks[r]`` into ``out``."""
         self._count("scatter")
         dist.scatter(out, list(chunks) if self.rank == 0 else None, src=0)
+
+    def all_gather(self, out: torch.Tensor, t: torch.Tensor) -> None:
+        """Every rank's ``t`` concatenated along dim 0 in rank order, into
+        ``out`` (``world * t.shape[0]`` rows), on every rank."""
+        self._count("all_gather")
+        all_gather_into(out, t)
+
+
+def all_gather_into(out: torch.Tensor, t: torch.Tensor) -> None:
+    """``torch.distributed``'s single-tensor all-gather (rank-order
+    concatenation along dim 0) under the name this torch gives it."""
+    fn = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    fn(out, t)
+
+
+def probe_devices(indices: Sequence[int],
+                  device_type: str = "cuda") -> List[int]:
+    """Health-probe the local devices ``indices`` (the members of a world,
+    rank order): a tiny round trip to each, returning the RANKS (positions
+    in ``indices``) whose probe failed.  The elastic coordinator's
+    liveness check (the reference's ``mesh.probe_devices``); on the CPU
+    each member is a process slot and always passes."""
+    dead = []
+    for rank, index in enumerate(indices):
+        dev = torch.device("cuda", index) if device_type == "cuda" \
+            else torch.device("cpu")
+        try:
+            if int(torch.full((), rank, device=dev).cpu()) != rank:
+                dead.append(rank)
+        except Exception:  # noqa: BLE001 - any failure marks the rank dead
+            dead.append(rank)
+    return dead
+
+
+def surviving_members(members: Sequence[int], new_world: int,
+                      exclude: Sequence[int] = ()) -> Tuple[int, ...]:
+    """The first ``new_world`` members (local device indices) that are not
+    in ``exclude``, in their order: the devices of the next, smaller world
+    (the reference's ``mesh.shrink_mesh``).  Survivors keep their relative
+    order, so a rank's identity is stable across the shrink."""
+    gone = set(exclude)
+    survivors = [m for m in members if m not in gone]
+    if new_world < 1:
+        raise ValueError(f"new world must be >= 1, got {new_world}")
+    if new_world > len(survivors):
+        raise ValueError(f"cannot shrink to world {new_world}: only "
+                         f"{len(survivors)} of {len(members)} members "
+                         f"survive")
+    return tuple(survivors[:new_world])

@@ -28,7 +28,9 @@ The compressed tiers carry per-rank state, ``init_comm(named_params)``,
 in ``SGDState.comm``: ``CompressedPsum`` (bf16 or int8 on the wire, with
 error-feedback residuals) and ``PowerSGD`` (rank-r factors).  Each rank
 holds only its own state; the reference package stacks every worker's on a
-leading mesh axis (``models/convert.py`` maps between the two).
+leading mesh axis (``models/convert.py`` maps between the two), as a
+checkpoint does; ``reshard_comm`` maps such a stack onto another world (an
+elastic resume).
 """
 
 from __future__ import annotations
@@ -421,6 +423,41 @@ class PowerSGD:
         new_comm = None if comm is None else {"residual": new_rs,
                                               "q": new_qs}
         return out, new_comm
+
+
+def _stack_sum(a: torch.Tensor) -> torch.Tensor:
+    """Sum over the leading axis, row after row: NumPy's order for a
+    reduction over axis 0, so the sum is the reference's bit for bit."""
+    total = a[0].to(torch.float32, copy=True)
+    for row in a[1:]:
+        total += row.to(torch.float32)
+    return total
+
+
+def reshard_comm(comm: Dict[str, Any], new_world: int) -> Dict[str, Any]:
+    """Map a comm state stacked over the ranks of an old world
+    (``{"residual": {name: (old_world, ...)}, "q": {...}}``, the layout of
+    a checkpoint) onto ``new_world`` ranks: the elastic resume at another
+    world (the reference's ``strategies.reshard_comm``).
+
+    Residuals are mass the collective has not delivered yet, so their SUM
+    is kept: each new rank gets ``sum_old(r) / new_world``.  The Q factors
+    hold the same content on every rank, so their mean is repeated."""
+    def sum_split(a):
+        return (_stack_sum(a) / new_world).expand(
+            (new_world,) + tuple(a.shape[1:])).clone()
+
+    def mean_repeat(a):
+        # NumPy's mean divides the f32 sum by an integer count in f64.
+        mean = (_stack_sum(a).double() / a.shape[0]).float()
+        return mean.expand(
+            (new_world,) + tuple(a.shape[1:])).clone()
+
+    out = dict(comm)
+    out["residual"] = {k: sum_split(v) for k, v in comm["residual"].items()}
+    if "q" in comm:
+        out["q"] = {k: mean_repeat(v) for k, v in comm["q"].items()}
+    return out
 
 
 STRATEGIES = {

@@ -51,6 +51,11 @@ _MID_FILE = re.compile(r"(\d+)\.pt$")
 
 Tensors = Dict[str, torch.Tensor]
 
+# Config keys an ELASTIC resume may change: resuming at another world size
+# is the elastic layer's point (and, under weak scaling, another global
+# batch); see cs744_ddp_tpu_torch/elastic/.
+_ELASTIC_FREE_KEYS = ("world", "global_batch")
+
 
 def _atomic_write_json(path: str, obj) -> None:
     """Complete-or-absent JSON write (tmp + rename); a preemption signal
@@ -178,13 +183,19 @@ class CheckpointManager:
     nothing.  The config is published by rank 0 only, atomically and
     exclusively (a hard link of a complete temporary file).
 
+    ``elastic=True`` leaves out of the comparison exactly the two keys a
+    world-resize resume changes (``world``, ``global_batch``); every other
+    difference still fails.  The config on disk is not rewritten: it keeps
+    the run's ORIGINAL topology, and the sidecars carry each save's.
+
     Saves are written by the caller's rank 0 only; every rank may read."""
 
     def __init__(self, directory: str, max_to_keep: int = 3,
-                 config: Optional[dict] = None):
+                 config: Optional[dict] = None, *, elastic: bool = False):
         directory = os.path.abspath(directory)
         self._dir = directory
         self._max_to_keep = max_to_keep
+        self._elastic = elastic
         self._config_path = os.path.join(directory, "trainer_config.json")
         self._refuse_foreign_steps()
         if config is not None:
@@ -208,10 +219,11 @@ class CheckpointManager:
                     f"{STATE_FORMAT_VERSION}; checkpoints do not survive "
                     f"changes of the saved state's structure — delete the "
                     f"directory to start fresh")
-            if existing != config:
+            diff = self._mismatch(existing, config)
+            if diff:
                 raise ValueError(
                     f"checkpoint dir {directory} belongs to a different "
-                    f"training config: {_differences(existing, config)}")
+                    f"training config: {diff}")
         os.makedirs(directory, exist_ok=True)
         if config is not None and not os.path.exists(self._config_path) \
                 and _writer():
@@ -241,11 +253,11 @@ class CheckpointManager:
         except FileExistsError:
             with open(self._config_path) as f:
                 existing = json.load(f)
-            if existing != config:
+            diff = self._mismatch(existing, config)
+            if diff:
                 raise ValueError(
                     f"checkpoint dir {self._dir} was concurrently claimed "
-                    f"by a different training config: "
-                    f"{_differences(existing, config)}") from None
+                    f"by a different training config: {diff}") from None
         except OSError:
             # A filesystem without hard links: an atomic (but
             # last-writer-wins) rename.
@@ -253,6 +265,15 @@ class CheckpointManager:
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
+
+    def _mismatch(self, saved: dict, current: dict) -> str:
+        """The differences of two configs ("" when none); under
+        ``elastic`` the world-resize keys are left out on both sides."""
+        if self._elastic:
+            saved, current = ({k: v for k, v in c.items()
+                               if k not in _ELASTIC_FREE_KEYS}
+                              for c in (saved, current))
+        return _differences(saved, current)
 
     # -- epoch saves ---------------------------------------------------------
 

@@ -44,6 +44,20 @@
     same bits.  Under an ``FTConfig`` the staging is supervised: retried
     puts, a watchdog, checksums, a stall deadline, a producer restart and
     then a degraded synchronous mode (``ft/supervisor.py``).
+  * ``elastic`` (``"weak"``, ``"strong"`` or an ``ElasticConfig``;
+    ``elastic/``): a checkpoint of another world size is resumed, its
+    progress re-planned (``elastic.protocol.plan_resume``) and its comm
+    state resharded.  ``"strong"`` pins the global batch: batch b is
+    canonical positions ``[b*B, (b+1)*B)``, wrap-padded to whole batches,
+    rank r of world M staging its contiguous columns
+    ``[r*B/M, (r+1)*B/M)``, and the window's body is the microshard step
+    (``elastic/step_elastic.py``) whose update is bitwise the same at every
+    world.  At every window boundary (with ``elastic`` or an ``FTConfig``)
+    the ranks exchange their window times for the straggler detector, and
+    the ``slow_rank`` and ``rank_death`` chaos sites fire; a death saves an
+    emergency checkpoint and ``run`` returns with ``rank_death`` set, for
+    the coordinator (``elastic/coordinator.py``) to relaunch a smaller
+    world.
 """
 
 from __future__ import annotations
@@ -65,13 +79,19 @@ import torch.distributed as dist
 from .. import models as model_zoo
 from ..data import cifar10, native, sharding
 from ..device import resolve_device, set_f32_parity
+from ..elastic.protocol import (PROTOCOLS, ElasticConfig, flat_meta,
+                                plan_resume)
+from ..elastic.step_elastic import MicroshardStep
+from ..elastic.straggler import StragglerDetector
 from ..ft import (NULL_CHAOS, ChaosError, FTConfig, NonFiniteError, POLICIES,
-                  PreemptedError, PreemptionGuard, check_sites)
+                  PreemptedError, PreemptionGuard, RankDeathError,
+                  check_sites)
 from ..ft import supervisor as ftsup
 from ..obs import ringbuf
 from ..ops import sgd
 from ..parallel import Group, get_strategy, initialize_distributed
 from ..parallel import strategies
+from ..parallel.mesh import all_gather_into
 from ..utils.metrics import WINDOW, WindowedTimers
 from . import step as steplib
 from .checkpoint import CheckpointManager, state_digest, validate_rank_keys
@@ -126,6 +146,43 @@ def _eval_batches(split: cifar10.Split, global_batch: int
 
 def _silent(_: str) -> None:
     pass
+
+
+def elastic_config(elastic, global_batch: int, *, host_augment: bool = False,
+                   profile_phases: bool = False,
+                   nonfinite_guard: bool = False) -> Optional[ElasticConfig]:
+    """``elastic`` as an ``ElasticConfig`` (a protocol name stands for its
+    default config; None stays None), refused as the reference's Trainer
+    refuses it: an unknown protocol, and under strong scaling a global
+    batch the microshards do not divide, the host pipeline (its streams
+    are rank-shaped), the per-step path and the non-finite guard (the
+    microshard step has neither)."""
+    if elastic is None:
+        return None
+    if isinstance(elastic, str):
+        elastic = ElasticConfig(protocol=elastic)
+    if elastic.protocol not in PROTOCOLS:
+        raise ValueError(f"elastic protocol must be one of {PROTOCOLS}, "
+                         f"got {elastic.protocol!r}")
+    if elastic.protocol == "strong":
+        s = elastic.microshards
+        if global_batch % s:
+            raise ValueError(
+                f"elastic strong scaling: global batch {global_batch} not "
+                f"divisible by microshards {s}")
+        if host_augment:
+            raise ValueError(
+                "elastic strong scaling requires device-side augmentation "
+                "(host streams are rank-shaped)")
+        if profile_phases:
+            raise ValueError(
+                "elastic strong scaling is windowed-only; profile_phases "
+                "uses the per-step programs")
+        if nonfinite_guard:
+            raise ValueError(
+                "elastic strong scaling does not support the non-finite "
+                "guard (the pinned window carries no guarded variant)")
+    return elastic
 
 
 def ring_capacity(metrics_ring: Optional[int], profile_phases: bool) -> int:
@@ -247,7 +304,13 @@ class Trainer:
     module docstring), each window staged in ``host_chunks`` chunks.
     ``reshuffle_each_epoch``: another sampler order every epoch (the
     reference script keeps one order).  Both as the reference's
-    ``Trainer`` takes them."""
+    ``Trainer`` takes them.
+
+    ``elastic``: ``"weak"``, ``"strong"`` or an ``ElasticConfig`` (see the
+    module docstring; ``elastic_config`` says what strong scaling
+    refuses).  After a ``rank_death``, ``run`` returns with
+    ``rank_death = (rank, epoch, step)``; ``resume_plan`` is the
+    ``ResumePlan`` of an elastic mid-epoch resume."""
 
     def __init__(self, model: str = "vgg11", strategy: str = "allreduce", *,
                  precision: str = "f32",
@@ -263,7 +326,7 @@ class Trainer:
                  log: Callable[[str], None] = print,
                  ft: Optional[FTConfig] = None,
                  host_augment: bool = False, host_chunks: int = 4,
-                 reshuffle_each_epoch: bool = False):
+                 reshuffle_each_epoch: bool = False, elastic=None):
         if host_chunks < 1:
             raise ValueError(f"host_chunks must be >= 1, got {host_chunks}")
         if precision not in PRECISIONS:
@@ -283,7 +346,7 @@ class Trainer:
         # Fault tolerance: ft=None keeps every hot path as without it.
         self.ft = ft
         self.chaos = ft.chaos if ft is not None else NULL_CHAOS
-        check_sites(self.chaos, host_augment)
+        check_sites(self.chaos, host_augment, elastic is not None)
         self.host_augment = host_augment
         self.host_chunks = int(host_chunks)
         self.reshuffle_each_epoch = reshuffle_each_epoch
@@ -304,6 +367,14 @@ class Trainer:
                 "chaos nonfinite_grad injection requires a nonfinite policy "
                 "(halt/skip/restore) — injecting NaNs with the guard off "
                 "just corrupts the run")
+        self.elastic = elastic_config(
+            elastic, global_batch, host_augment=host_augment,
+            profile_phases=profile_phases, nonfinite_guard=self._guard_on)
+        self._strong = self.elastic is not None and \
+            self.elastic.protocol == "strong"
+        self.rank_death: Optional[Tuple[int, int, int]] = None
+        self.resume_plan = None
+        self._straggler: Optional[StragglerDetector] = None
         self.preempted = False
         self._preempt_guard: Optional[PreemptionGuard] = None
         self._rollback: Optional[Dict[str, torch.Tensor]] = None
@@ -326,6 +397,13 @@ class Trainer:
         if self.device.type == "cuda":
             self.device = torch.device("cuda", torch.cuda.current_device())
             set_f32_parity()
+        # Process-wide, as the switch is: bitwise world invariance is the
+        # strong protocol's contract, and cuDNN's nondeterministic
+        # algorithms would break it.
+        turn_deterministic = self._strong and self.device.type == "cuda" \
+            and not torch.backends.cudnn.deterministic
+        if turn_deterministic:
+            torch.backends.cudnn.deterministic = True
         if global_batch % self.world:
             raise ValueError(f"global batch {global_batch} not divisible by "
                              f"world size {self.world}")
@@ -340,6 +418,9 @@ class Trainer:
         self.limit_train_batches = limit_train_batches
         self.limit_eval_batches = limit_eval_batches
         self.log = log if self.rank == 0 else _silent
+        if turn_deterministic:
+            self.log("elastic strong: deterministic cuDNN turned on (the "
+                     "update must be bitwise the same at every world)")
 
         self.train_split, self.test_split, self.real_data = \
             cifar10.load(data_dir)
@@ -366,6 +447,13 @@ class Trainer:
         self._host_window_body = steplib.make_step_body(
             net, strat, sgd_cfg, augment="host_u8", **step_kw) \
             if host_augment else None
+        # Strong scaling: the windows' body is the microshard step; the
+        # strategy still names the eval and the comm state it carries.
+        self._elastic_body = MicroshardStep(
+            net, sgd_cfg, microshards=self.elastic.microshards,
+            world=self.world, rank=self.rank, group=self.group,
+            augment=augment, seed=seed, compute_dtype=dtype) \
+            if self._strong else None
         self.forward_step = steplib.make_forward_step(
             net, self.group, dtype, augment="host" if host_augment else False)
         self.evaluate = steplib.make_eval_window(net, self.group, dtype)
@@ -397,33 +485,57 @@ class Trainer:
         return (torch.tensor(images, device=self.device),
                 torch.tensor(labels, dtype=torch.int64, device=self.device))
 
-    def _stage_train_epoch(self, epoch: int) -> StagedEpoch:
-        """This rank's rows of every full batch of ``epoch`` in persistent
-        device buffers ``[NB, b, 32, 32, 3]`` / ``[NB, b]``, the ragged
-        tail batch apart (None when the epoch has none within the limit).
-        Cached on the split and the sampler's order; another order is
-        restaged by ``copy_`` into the same buffers, so that a captured
-        window's addresses hold."""
-        split = self.train_split
+    def _epoch_cols(self, epoch: int
+                    ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """This rank's example indices of the epoch's full batches within
+        the limit ``[nfull, b]``, and of its ragged tail batch (None when
+        it has none within the limit).  Rank r of world w takes positions
+        ``r::w`` of the sampler's order; under strong scaling batch b is
+        canonical positions ``[b*B, (b+1)*B)``, wrap-padded to whole
+        batches (no tail at any world), and rank r its contiguous columns,
+        so that it holds microshards ``r*k .. r*k + k - 1``."""
+        n, per = len(self.train_split.labels), self.per_rank_batch
+        if self._strong:
+            nb = -(-n // self.global_batch)
+            if self.limit_train_batches is not None:
+                nb = min(nb, self.limit_train_batches)
+            order = sharding.canonical_epoch_order(
+                n, seed=self.seed, epoch=epoch,
+                reshuffle_each_epoch=self.reshuffle_each_epoch,
+                pad_to=nb * self.global_batch)
+            cols = order[:nb * self.global_batch].reshape(
+                nb, self.global_batch)
+            return cols[:, self.rank * per:(self.rank + 1) * per], None
         order = sharding.global_epoch_indices(
-            len(split.labels), self.world, seed=self.seed, epoch=epoch,
+            n, self.world, seed=self.seed, epoch=epoch,
             reshuffle_each_epoch=self.reshuffle_each_epoch)[self.rank]
-        key = (id(split), order.tobytes())
-        if self._staged_train is not None and self._staged_train[0] == key:
-            return self._staged_train[1]
-        per = self.per_rank_batch
         nbatches = -(-len(order) // per)
         if self.limit_train_batches is not None:
             nbatches = min(nbatches, self.limit_train_batches)
         nfull = min(len(order) // per, nbatches)
-        cols = order[:nfull * per]
+        tail = order[nfull * per:] if nfull < nbatches else None
+        return order[:nfull * per].reshape(nfull, per), tail
+
+    def _stage_train_epoch(self, epoch: int) -> StagedEpoch:
+        """This rank's rows of every full batch of ``epoch`` in persistent
+        device buffers ``[NB, b, 32, 32, 3]`` / ``[NB, b]``, the ragged
+        tail batch apart (``_epoch_cols``).  Cached on the split and the
+        columns; another order is restaged by ``copy_`` into the same
+        buffers, so that a captured window's addresses hold."""
+        split = self.train_split
+        cols, tail_cols = self._epoch_cols(epoch)
+        key = (id(split), cols.tobytes(),
+               None if tail_cols is None else tail_cols.tobytes())
+        if self._staged_train is not None and self._staged_train[0] == key:
+            return self._staged_train[1]
+        nfull, per = cols.shape
         images = torch.from_numpy(
-            split.images[cols].reshape(nfull, per, 32, 32, 3))
+            split.images[cols.reshape(-1)].reshape(nfull, per, 32, 32, 3))
         labels = torch.from_numpy(
-            split.labels[cols].astype(np.int64).reshape(nfull, per))
+            split.labels[cols].astype(np.int64))
         tail = None
-        if nfull < nbatches:
-            tail = self._to_device(*(a[order[nfull * per:]] for a in split))
+        if tail_cols is not None:
+            tail = self._to_device(*(a[tail_cols] for a in split))
         if self._staged_train is None:
             staged = StagedEpoch(images.to(self.device),
                                  labels.to(self.device), tail)
@@ -479,7 +591,8 @@ class Trainer:
             else:
                 staged = self._staged_buffers()
                 images, labels = staged.images, staged.labels
-                body, buffered = self.train_step.body, False
+                body, buffered = self._elastic_body or \
+                    self.train_step.body, False
             self._train_window = steplib.TrainWindow(
                 body, self.state, images, labels, group=self.group,
                 ring_capacity=self.metrics_ring, buffered=buffered)
@@ -549,6 +662,52 @@ class Trainer:
 
     def _record_chaos(self, site: str, step: int) -> None:
         self.log(f"chaos: injected {site} at step {step}")
+
+    def _rank_step_times(self, t: float) -> List[float]:
+        """Every rank's window step time, in rank order: ONE all-gather of
+        one number, outside the captured step and not through the counted
+        ``Group`` (a device tensor: NCCL moves no host memory)."""
+        if self.world == 1:
+            return [t]
+        mine = torch.full((1,), t, dtype=torch.float64, device=self.device)
+        every = torch.empty(self.world, dtype=torch.float64,
+                            device=self.device)
+        all_gather_into(every, mine)
+        return every.tolist()
+
+    def _rank_boundary(self, epoch: int, step: int, per_iter: float) -> None:
+        """Window-boundary rank bookkeeping (with ``elastic`` or an
+        ``FTConfig``; else nothing): the ranks' step-time gauges, the
+        straggler detector, and the rank-level chaos sites.  Each rank
+        measured its own window (``per_iter``) before it gets here, so a
+        rank that waits below for a slow peer does not count the wait.
+        ``slow_rank`` stalls its target rank, which adds the stall to its
+        own gauge; the detector, fed every rank's gauge, must flag it
+        alone.  ``rank_death`` raises ``RankDeathError`` on every rank (a
+        step boundary: ``step`` batches are what the emergency checkpoint
+        records)."""
+        if self.elastic is None and not self._supervise:
+            return
+        stall = 0.0
+        if self.chaos.enabled and self.chaos.fire_reached("slow_rank", step):
+            planned = self.chaos.fired[-1][1]
+            self._record_chaos("slow_rank", step)
+            if self.chaos.seed_of("slow_rank", planned) == self.rank:
+                stall = (self.ft or FTConfig()).slow_rank_stall_s
+                time.sleep(stall)   # the rank really straggles
+        if self._straggler is None:
+            self._straggler = StragglerDetector(self.world)
+        for r, t in enumerate(self._rank_step_times(per_iter + stall)):
+            self._straggler.observe(r, t)
+        for r in self._straggler.check():
+            self.log(f"elastic: rank {r} straggling "
+                     f"(EWMA {self._straggler.ewma(r):.3f}s vs peers)")
+        if self.chaos.enabled and \
+                self.chaos.fire_reached("rank_death", step):
+            planned = self.chaos.fired[-1][1]
+            self._record_chaos("rank_death", step)
+            raise RankDeathError(self.chaos.seed_of("rank_death", planned),
+                                 epoch, step)
 
     def _check_preempt(self, epoch: int, step: int) -> None:
         """Window-boundary preemption poll: fire a planned chaos SIGTERM
@@ -1187,6 +1346,7 @@ class Trainer:
                 trained += w
                 if oks is not None:
                     self._handle_nonfinite(oks, epoch)
+                self._rank_boundary(epoch, trained, per_iter)
                 self._check_preempt(epoch, trained)
         finally:
             chunk_iter.close()
@@ -1246,6 +1406,7 @@ class Trainer:
             start += w
             if oks is not None:
                 self._handle_nonfinite(oks, epoch)
+            self._rank_boundary(epoch, start, per_iter)
             self._check_preempt(epoch, start)
         if staged.tail is not None and start_step <= nbatches:
             t0 = time.time()
@@ -1337,8 +1498,10 @@ class Trainer:
                 steplib.named_state_tensors(self.state))}
 
     def _epoch_meta(self, epoch: int) -> dict:
-        """The topology and data-order sidecar of every save."""
-        return {
+        """The topology and data-order sidecar of every save: enough for
+        ``elastic.protocol.plan_resume`` to map its progress onto another
+        world, and the per-rank data-order keys a resume checks."""
+        meta = {
             "world": self.world, "global_batch": self.global_batch,
             "seed": self.seed,
             "reshuffle_each_epoch": self.reshuffle_each_epoch,
@@ -1346,6 +1509,11 @@ class Trainer:
                 len(self.train_split.labels), self.world, seed=self.seed,
                 epoch=epoch,
                 reshuffle_each_epoch=self.reshuffle_each_epoch))}
+        if self.elastic is not None:
+            meta["protocol"] = self.elastic.protocol
+            if self._strong:
+                meta["microshards"] = self.elastic.microshards
+        return meta
 
     def _data_order_meta(self, epoch: int, step: int) -> dict:
         """The mid-epoch sidecar's ``data_order``."""
@@ -1384,7 +1552,10 @@ class Trainer:
     def load_checkpoint(self, tensors: Dict[str, torch.Tensor]) -> None:
         """``copy_`` a checkpoint (``checkpoint_tensors``' layout; this
         rank takes its row of the comm state) into the tensors the step
-        carries.  Raises, before writing anything, if it does not fit
+        carries.  A comm state stacked over another world (an elastic
+        resume) is resharded onto this one first
+        (``strategies.reshard_comm``: residuals keep their sum, Q factors
+        their mean).  Raises, before writing anything, if it does not fit
         them name for name, shape for shape and dtype for dtype."""
         live = steplib.named_state_tensors(self.state)
         if set(tensors) != set(live):
@@ -1392,13 +1563,17 @@ class Trainer:
                 f"the checkpoint's tensors do not fit this Trainer's: "
                 f"missing {sorted(set(live) - set(tensors))}, unexpected "
                 f"{sorted(set(tensors) - set(live))}")
+        comm = {k: v for k, v in tensors.items() if k.startswith("comm/")}
+        worlds = {v.shape[0] if v.dim() else None for v in comm.values()}
+        if len(worlds) > 1 or None in worlds:
+            raise ValueError(f"the comm state is not stacked over one "
+                             f"world: {sorted(map(str, worlds))}")
+        if worlds and worlds != {self.world}:
+            tensors = {**tensors, **self._reshard(comm)}
         src = {}
         for k, t in live.items():
             v = tensors[k]
             if k.startswith("comm/"):
-                if v.dim() == 0 or v.shape[0] != self.world:
-                    raise ValueError(f"{k}: {tuple(v.shape)} is not stacked "
-                                     f"over {self.world} rank(s)")
                 v = v[self.rank]
             if v.shape != t.shape or v.dtype != t.dtype:
                 raise ValueError(f"{k}: the checkpoint holds {v.dtype}"
@@ -1408,6 +1583,20 @@ class Trainer:
         with torch.no_grad():
             for k, t in live.items():
                 t.copy_(src[k])
+
+    def _reshard(self, comm: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        """``checkpoint_tensors``' comm entries, stacked over another
+        world, resharded onto this one."""
+        groups = {"residual": {}, "q": {}}
+        for k, v in comm.items():
+            _, kind, name = k.split("/", 2)
+            groups[kind][name] = v
+        if not groups["q"]:
+            del groups["q"]
+        out = strategies.reshard_comm(groups, self.world)
+        return {f"comm/{kind}/{name}": v
+                for kind, named in out.items() for name, v in named.items()}
 
     def _save(self, mngr: CheckpointManager, epoch: int,
               step: Optional[int] = None) -> None:
@@ -1427,17 +1616,43 @@ class Trainer:
         if self.world > 1:
             dist.barrier()
 
+    def _plan_elastic_resume(self, meta: Optional[dict],
+                             start_step: int) -> int:
+        """Map a mid-epoch checkpoint's progress onto THIS world:
+        unchanged under strong scaling (batch b is the same canonical
+        positions at every world), re-derived from example progress under
+        weak."""
+        flat = flat_meta(meta)
+        if not flat:
+            return start_step
+        plan = plan_resume(
+            flat, self.world, protocol=self.elastic.protocol,
+            microshards=self.elastic.microshards if self._strong else None,
+            default_global_batch=self.global_batch)
+        self.resume_plan = plan
+        if plan.old_world != plan.new_world:
+            self.log(
+                f"elastic: resuming world {plan.old_world} -> "
+                f"{plan.new_world} ({plan.protocol}); start step "
+                f"{start_step} -> {plan.start_step}"
+                + (f", {plan.examples_replayed} example(s) replayed"
+                   if plan.examples_replayed else ""))
+        return plan.start_step
+
     def _resume(self, mngr: CheckpointManager) -> Tuple[int, int]:
         """Restore the newest save, if any: (start epoch, start step).  A
         mid-epoch save outranks the epoch series only when it is AHEAD of
         it (a crash between an epoch save and its clear leaves a stale
-        one behind)."""
+        one behind).  Under ``elastic`` the save may be of another world:
+        its step is re-planned and its comm state resharded."""
         n = len(self.train_split.labels)
         mid, le = mngr.latest_mid_epoch(), mngr.latest_epoch()
         if mid is not None and (le is None or mid[0] > le):
             tensors, epoch, step = mngr.restore_mid_epoch()
             validate_rank_keys(mngr.mid_epoch_meta(), n)
             self.load_checkpoint(tensors)
+            if self.elastic is not None:
+                step = self._plan_elastic_resume(mngr.mid_epoch_meta(), step)
             self.log(f"Resumed from mid-epoch checkpoint: epoch {epoch}, "
                      f"step {step}")
             return epoch, step
@@ -1466,7 +1681,8 @@ class Trainer:
         mngr = None
         if checkpoint_dir is not None:
             mngr = CheckpointManager(checkpoint_dir,
-                                     config=self.checkpoint_config())
+                                     config=self.checkpoint_config(),
+                                     elastic=self.elastic is not None)
             start_epoch, start_step = self._resume(mngr)
         if self._nf_policy == "restore":
             self._snapshot_rollback()
@@ -1490,6 +1706,18 @@ class Trainer:
                         self.log(f"Preempted at epoch {e.epoch} step "
                                  f"{e.step}; no checkpoint dir — progress "
                                  f"since the last save is lost")
+                    return
+                except RankDeathError as e:
+                    if mngr is not None:
+                        self._save(mngr, e.epoch, e.step)
+                        self.log(f"Rank {e.rank} died at epoch {e.epoch} "
+                                 f"step {e.step}; emergency checkpoint "
+                                 f"saved")
+                    else:
+                        self.log(f"Rank {e.rank} died at epoch {e.epoch} "
+                                 f"step {e.step}; no checkpoint dir — "
+                                 f"progress since the last save is lost")
+                    self.rank_death = (e.rank, e.epoch, e.step)
                     return
                 start_step = 0
                 self.log(f"Training time after {epoch + 1} epoch is "

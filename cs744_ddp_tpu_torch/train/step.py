@@ -183,17 +183,19 @@ def _input_stats(augment, device) -> Tuple[torch.Tensor, torch.Tensor]:
 def prepare(images: torch.Tensor, augment, key: int,
             epoch: torch.Tensor, idx: torch.Tensor,
             stats: Tuple[torch.Tensor, torch.Tensor],
-            compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+            compute_dtype: Optional[torch.dtype] = None,
+            micro: Optional[int] = None) -> torch.Tensor:
     """A batch [B,32,32,3] -> the model's input [B,3,32,32] (channels_last)
     in f32, as ``augment`` (``AUGMENT_MODES``) says; then cast to
     ``compute_dtype`` (None: stays f32), as the reference's
-    ``fold_and_prepare`` casts after the transform."""
+    ``fold_and_prepare`` casts after the transform.  ``micro`` keys the
+    draws of an elastic microshard (``aug.draws``)."""
     if augment == "host":
         x = images
     elif augment == "host_u8":
         x = aug.normalize_affine(images, stats)
     elif augment:
-        x = aug.augment(images, key, epoch, idx, stats)
+        x = aug.augment(images, key, epoch, idx, stats, micro)
     else:
         x = aug.normalize(images, stats)
     return aug.cast(aug.to_model_input(x), compute_dtype)

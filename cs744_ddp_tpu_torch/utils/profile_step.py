@@ -2,7 +2,7 @@
 
     python -m cs744_ddp_tpu_torch.utils.profile_step [--strategy NAME]
         [--model vgg11|vgg13|vgg16|vgg19|resnet18|resnet34]
-        [--precision f32|bf16]
+        [--precision f32|bf16] [--elastic strong] [--deterministic]
 
 Runs the Trainer's step of ``--model`` (VGG-11 by default) in
 ``--precision`` with the given strategy (``single`` by default; any
@@ -16,6 +16,11 @@ device's busy share of it (union of kernel intervals over wall time),
 device time per step by kernel family, each of the port's own kernels, and
 the top kernels.  A model with no pool block (the ResNets) runs no bnpool
 kernel: its bnpool family is reported absent, not as zero time.
+``--elastic strong``: the window's step is the elastic microshard step
+(``elastic/step_elastic.py``; it has no per-step path, so only the
+windowed path is traced, with deterministic cuDNN, which the protocol
+turns on); ``--deterministic``: deterministic cuDNN for the others, to
+compare with it.
 """
 
 from __future__ import annotations
@@ -128,13 +133,21 @@ def main(argv=None) -> None:
                         help="any name of the model zoo")
     parser.add_argument("--precision", default="f32",
                         choices=sorted(loop.PRECISIONS))
+    parser.add_argument("--elastic", choices=["strong"], default=None)
+    parser.add_argument("--deterministic", action="store_true")
     args = parser.parse_args(argv)
+    if args.deterministic:
+        torch.backends.cudnn.deterministic = True
     trainer = loop.Trainer(args.model, args.strategy,
-                           precision=args.precision, log=lambda s: None)
+                           precision=args.precision, log=lambda s: None,
+                           elastic=args.elastic)
     pools = any(isinstance(m, BnReluPool2d)
                 for m in trainer.state.model.modules())
     head = (f"{torch.cuda.get_device_name(0)}, {args.model}, "
-            f"{args.precision}")
+            f"{args.precision}"
+            + (", --elastic strong" if args.elastic else "")
+            + (", deterministic cuDNN" if
+               torch.backends.cudnn.deterministic else ""))
     batches = enumerate(loop._train_batches(
         trainer.train_split, trainer.global_batch, 0, trainer.seed))
 
@@ -147,15 +160,19 @@ def main(argv=None) -> None:
         for _ in range(STEPS):
             step()
 
-    for _ in range(WARMUP):
-        step()
-    report(f"{head}, {args.strategy}, per-step path", steps, STEPS, pools)
+    if args.elastic is None:
+        for _ in range(WARMUP):
+            step()
+        report(f"{head}, {args.strategy}, per-step path", steps, STEPS,
+               pools)
 
     window = trainer.train_window()
     for start in range(0, WARMUP, STEPS):       # capture, then warm
         window(0, start, STEPS).cpu()
     report(f"{head}, {args.strategy}, windowed path (graph replays)",
            lambda: window(0, WARMUP, STEPS).cpu(), STEPS, pools)
+    print(f"[profile] {head}, {args.strategy}: max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB")
 
 
 if __name__ == "__main__":

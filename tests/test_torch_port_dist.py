@@ -48,12 +48,12 @@ STEPS, BATCH, LR = 3, 32, 0.01
 STEP_CASES = [(2, "gather"), (2, "allreduce"), (2, "ddp"), (4, "allreduce"),
               (4, "overlap")]
 # One step of VGG-11 (34 parameters, two buckets, 9 low-rank), by kind:
-# all_reduce, all_reduce_max, gather, scatter.
-VGG11_COUNTS = {"gather": [0, 0, 34, 34], "allreduce": [34, 0, 0, 0],
-                "ddp": [2, 0, 0, 0], "overlap": [2, 0, 0, 0],
-                "compress-bf16": [34, 0, 0, 0],
-                "compress-int8": [34, 1, 0, 0],
-                "powersgd": [2 * 9 + 25, 0, 0, 0]}
+# all_reduce, all_reduce_max, gather, scatter, all_gather.
+VGG11_COUNTS = {"gather": [0, 0, 34, 34, 0], "allreduce": [34, 0, 0, 0, 0],
+                "ddp": [2, 0, 0, 0, 0], "overlap": [2, 0, 0, 0, 0],
+                "compress-bf16": [34, 0, 0, 0, 0],
+                "compress-int8": [34, 1, 0, 0, 0],
+                "powersgd": [2 * 9 + 25, 0, 0, 0, 0]}
 
 
 def _reference_run(world, name, batches):

@@ -103,10 +103,8 @@ def test_null_chaos_and_site_names_match_reference():
         assert getattr(ft.NULL_CHAOS, m)(site, *a) is False
     assert ft.NULL_CHAOS.steps("preempt") == () and \
         ft.NULL_CHAOS.spec() == []
-    # The reference's fields and defaults, without the elastic layer's
-    # slow_rank_stall_s.
-    want = {k: v for k, v in jft.FTConfig._field_defaults.items()
-            if k != "slow_rank_stall_s"}
+    # The reference's fields and defaults.
+    want = dict(jft.FTConfig._field_defaults)
     assert want["chaos"] is jchaos.NULL_CHAOS
     want["chaos"] = ft.NULL_CHAOS
     assert FTConfig._fields == tuple(want)
@@ -139,6 +137,34 @@ def test_trainer_refuses_a_site_it_cannot_fire(site):
                        if site in ft.STAGING_SITES else "queue 1 item"):
         cli.ft_config_from_args(cli.parse_args(
             ["--nonfinite", "skip", "--chaos", f"{site}:3"]))
+
+
+@pytest.mark.parametrize("site", ["rank_death", "slow_rank",
+                                  "coordinator_loss"])
+def test_elastic_trainer_and_cli_accept_a_rank_site(site):
+    """The rank sites fire at the window boundaries (``coordinator_loss``
+    in the elastic coordinator): an elastic Trainer and the CLI's
+    ``--elastic`` config take each."""
+    plan = ChaosPlan.parse([f"{site}:3:1"])
+    tr = _narrow(ft=FTConfig(chaos=plan), elastic="weak")
+    assert tr.chaos is plan and tr.elastic.protocol == "weak"
+    ftc = cli.ft_config_from_args(cli.parse_args(
+        ["--elastic", "strong", "--chaos", f"{site}:3:1"]))
+    assert ftc.chaos.spec() == [{"site": site, "step": 3, "seed": 1}]
+    assert ftc.slow_rank_stall_s == jft.FTConfig().slow_rank_stall_s
+
+
+def test_coordinator_loss_is_refused_without_elastic():
+    """No coordinator runs without ``elastic``; the other rank sites fire
+    in any Trainer with an ``FTConfig``."""
+    plan = ChaosPlan.parse(["coordinator_loss:0"])
+    with pytest.raises(ValueError, match="needs elastic"):
+        _narrow(ft=FTConfig(chaos=plan))
+    with pytest.raises(SystemExit, match=r"--elastic weak\|strong"):
+        cli.ft_config_from_args(cli.parse_args(
+            ["--chaos", "coordinator_loss:0"]))
+    for site in ("rank_death", "slow_rank"):
+        _narrow(ft=FTConfig(chaos=ChaosPlan.parse([f"{site}:3:1"])))
 
 
 # -- the guarded window against the reference's ------------------------------

@@ -54,12 +54,14 @@ TIERS = ("gather", "allreduce", "ddp", "overlap", "compress-bf16",
 WORLDS = (2, 4)
 STATELESS = ("gather", "allreduce", "ddp", "overlap")
 # Collectives per call on the narrow VGG's 22 leaves (one bucket; 6
-# low-rank leaves), by kind: all_reduce, all_reduce_max, gather, scatter.
-NARROW_COUNTS = {"gather": [0, 0, 22, 22], "allreduce": [22, 0, 0, 0],
-                 "ddp": [1, 0, 0, 0], "overlap": [1, 0, 0, 0],
-                 "compress-bf16": [22, 0, 0, 0],
-                 "compress-int8": [22, 1, 0, 0],
-                 "powersgd": [2 * 6 + 16, 0, 0, 0]}
+# low-rank leaves), by kind: all_reduce, all_reduce_max, gather, scatter,
+# all_gather.
+NARROW_COUNTS = {"gather": [0, 0, 22, 22, 0],
+                 "allreduce": [22, 0, 0, 0, 0],
+                 "ddp": [1, 0, 0, 0, 0], "overlap": [1, 0, 0, 0, 0],
+                 "compress-bf16": [22, 0, 0, 0, 0],
+                 "compress-int8": [22, 1, 0, 0, 0],
+                 "powersgd": [2 * 6 + 16, 0, 0, 0, 0]}
 CHANNELS = [3, 8, 16, 32, 64, 512]      # worker.NARROW_VGG's convolutions
 
 

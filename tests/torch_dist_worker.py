@@ -39,6 +39,14 @@ once for all of them):
     epoch by the host windowed path and by the host per-step path; writes
     the window buffer's rows after each assembly and the ragged tail's f32
     batch (this rank's rows of the host stream), both states and losses.
+  * ``elastic``    — ``loop.WINDOW`` set to ``window``: a narrow VGG
+    ``Trainer(elastic=protocol)`` of ``strategy`` trained ``epochs`` by
+    ``run`` (into ``dir`` when given), under the chaos plan ``chaos`` with
+    ``slow_rank_stall_s`` ``stall``; with ``plant``, each rank's comm
+    residuals set to a distinct ramp first.  Writes the state by name,
+    the last epoch's losses, the log, ``rank_death``, the fired chaos
+    entries, the straggler's flags, the resume plan, the collective
+    counts and the epoch sidecar.
 
 ``start`` starts the ranks; ``Ranks.wait`` waits for them, killing them
 at the time limit.
@@ -369,10 +377,65 @@ def task_host(task: dict, group, rank: int, outdir: str) -> None:
     np.savez(os.path.join(outdir, f"host_r{rank}.npz"), **results)
 
 
+def planted_residuals(shapes: List[tuple], rank: int) -> List[np.ndarray]:
+    """A ramp per residual, offset by ``rank + 1``: distinct on every rank
+    and exact in f32 and in any sum of two."""
+    return [np.arange(int(np.prod(sh)), dtype=np.float32).reshape(sh) / 64.0
+            + np.float32(rank + 1) for sh in shapes]
+
+
+def task_elastic(task: dict, group, rank: int, outdir: str) -> None:
+    import torch
+    from cs744_ddp_tpu_torch.elastic import ElasticConfig
+    from cs744_ddp_tpu_torch.ft import ChaosPlan, FTConfig
+    from cs744_ddp_tpu_torch.models import vgg
+    from cs744_ddp_tpu_torch.train import loop
+    from cs744_ddp_tpu_torch.train.checkpoint import read_epoch_meta
+    from cs744_ddp_tpu_torch.train.step import named_state_tensors
+
+    vgg.CFG["VGGT"] = NARROW_VGG
+    loop.WINDOW = task["window"]
+    ft = None
+    if task.get("chaos"):
+        ft = FTConfig(chaos=ChaosPlan.parse(task["chaos"]),
+                      slow_rank_stall_s=task.get("stall", 0.25))
+    lines: List[str] = []
+    tr = loop.Trainer(
+        "vggt", task["strategy"], global_batch=task["global_batch"],
+        data_dir=ASSETS, device="cpu", seed=task["seed"],
+        limit_train_batches=task.get("limit"), limit_eval_batches=1,
+        log=lines.append, ft=ft,
+        elastic=ElasticConfig(task["protocol"], task["microshards"]))
+    comm = tr.state.opt_state.comm
+    if task.get("plant"):
+        with torch.no_grad():
+            for r, v in zip(comm["residual"], planted_residuals(
+                    [tuple(r.shape) for r in comm["residual"]], rank)):
+                r.copy_(torch.from_numpy(v))
+    tr.run(task["epochs"], checkpoint_dir=task.get("dir"))
+    out = {f"state/{k}": t.contiguous().numpy()
+           for k, t in named_state_tensors(tr.state).items()}
+    out["losses"] = np.array(tr.last_epoch_timers.losses
+                             if tr.last_epoch_timers else [])
+    out["log"] = np.array(lines)
+    out["rank_death"] = np.array(tr.rank_death or [], dtype=np.int64)
+    out["fired"] = np.array(json.dumps(getattr(tr.chaos, "fired", [])))
+    out["flags"] = np.array(json.dumps(
+        {} if tr._straggler is None else tr._straggler.flag_counts))
+    out["plan"] = np.array(json.dumps(
+        None if tr.resume_plan is None else tr.resume_plan._asdict()))
+    out["counts"] = np.array([tr.group.total_counts[k]
+                              for k in tr.group.KINDS])
+    out["sidecar"] = np.array(json.dumps(
+        read_epoch_meta(task["dir"]) if task.get("dir") else None))
+    np.savez(os.path.join(outdir, f"elastic_{task['name']}_r{rank}.npz"),
+             **out)
+
+
 TASKS = {"strategies": task_strategies, "step": task_step,
          "counts": task_counts, "single": task_single,
          "window": task_window, "resume": task_resume, "guard": task_guard,
-         "host": task_host}
+         "host": task_host, "elastic": task_elastic}
 
 
 def main() -> None:
