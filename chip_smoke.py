@@ -155,7 +155,30 @@ Phases, in order; any failure exits non-zero:
                ``--chaos rank_death:25:1``, shrinking to world 1 and
                ending bitwise that uninterrupted world-1 run, and the CLI
                at world ``min(4, count)`` bitwise it too;
- 10. report  — the ``kernels`` JSON line (each kernel in f32, with the
+ 10. telemetry — the cost of ``--telemetry-out`` first, in a fresh process
+               that has started no profiler
+               (``utils/profile_telemetry.py``): VGG-11 ``allreduce``
+               windowed, batch 256, steady steps off, on and of a second
+               Trainer with it off in turns, f32 and bf16, recorded, and
+               an epoch's host round trips and bnpool runs the same off
+               and on (a limit).  Then the
+               port's CLI in this process, VGG-11 f32 ``allreduce``,
+               batch 256, windowed, ``--limit-train-batches 60
+               --limit-eval-batches 4 --telemetry-out D --profile-dir P``,
+               and VGG-11 ``--precision bf16`` with ``--telemetry-out``:
+               ``manifest.json`` names the card (``backend`` cuda,
+               ``device_kind``) and the kernels' build; ``events.jsonl``
+               holds one step event per trained step, each with a finite
+               ``grad_sqnorm`` and its ``step_index``; ``summary.json``
+               equals ``summarize_events`` of the events; the
+               ``host_round_trips`` counter totals at most windows + 2;
+               ``device_memory`` and ``memory`` gauges nonzero; the
+               all-reduce counters equal the ``Group``'s 34 a step and
+               the gradients' MiB; the f32 run's profiler trace holds the
+               bnpool kernels, as many runs of each as the kernels counted
+               on the device in that epoch (5 x (3 warm-up steps + 60
+               replays));
+ 11. report  — the ``kernels`` JSON line (each kernel in f32, with the
                main path's runs, and in bf16, with the VGG-11 bf16 path's;
                ``launches_by_path`` also holds the host and elastic paths'
                runs), the card's name and power limit, and as the last
@@ -2011,6 +2034,154 @@ def phase_elastic(card_line):
     return paths
 
 
+TELEMETRY_STEPS = 60             # phase telemetry: three 20-step windows
+TELEMETRY_EVAL = 4
+
+
+def check_run_dir(label, run_dir, precision):
+    """A ``--telemetry-out`` directory of a VGG-11 ``allreduce`` run of
+    ``TELEMETRY_STEPS`` windowed steps against the limits of phase
+    telemetry; its host round trips."""
+    from cs744_ddp_tpu_torch.models import get_model
+    from cs744_ddp_tpu_torch.obs import read_run, summarize_events
+
+    manifest, events, summary = read_run(run_dir)
+    check(manifest is not None and manifest["backend"] == "cuda"
+          and manifest["device_kind"] == torch.cuda.get_device_name(0)
+          and manifest["precision"] == precision
+          and manifest["cuda_kernels"]["bnpool.cu"]["loaded"],
+          f"{label}: manifest {manifest}")
+    steps = [e for e in events if e["kind"] == "step"]
+    check([e["iter"] for e in steps] == list(range(1, TELEMETRY_STEPS + 1))
+          and [e.get("step_index") for e in steps]
+          == list(range(TELEMETRY_STEPS))
+          and all(math.isfinite(e["grad_sqnorm"]) for e in steps),
+          f"{label}: step events {steps[:3]} ... ({len(steps)})")
+    check(summary == summarize_events(events, global_batch=BATCH),
+          f"{label}: summary.json is not summarize_events of the events")
+    counters = summary["counters"]
+    windows = -(-TELEMETRY_STEPS // WINDOW)
+    trips = counters.get("host_round_trips", 0)
+    check(0 < trips <= windows + 2, f"{label}: {trips} host round trips")
+    gauges = {}
+    for e in events:
+        if e["kind"] == "gauge":
+            gauges.setdefault(e["name"], []).append(e["value"])
+    check(gauges.get("device_memory") and all(
+        g["bytes_in_use"] > 0 and g["peak_bytes_in_use"] > 0
+        and g["bytes_limit"] > 0 for g in gauges["device_memory"])
+        and gauges.get("memory") and all(
+            g["device_live_mib"] > 0 and g["host_rss_peak_mib"] > 0
+            for g in gauges["memory"]),
+        f"{label}: memory gauges {gauges.get('device_memory')} "
+        f"{gauges.get('memory', [])[-1:]}")
+    grad_bytes = sum(p.numel() * 4 for p in get_model("vgg11").parameters())
+    want = STEP_COUNTS["allreduce"]["all_reduce"]
+    check(counters.get("collective_all-reduce_count") == want
+          and counters.get("collective_all-reduce_result_mib")
+          == round(grad_bytes / 2 ** 20, 2),
+          f"{label}: collective counters {counters}, want {want} "
+          f"all-reduces of {grad_bytes} bytes")
+    return trips, len(steps), summary
+
+
+def trace_runs(path):
+    """Each bnpool kernel variant's runs in a Chrome trace of
+    ``torch.profiler``, and all device kernels in it."""
+    from collections import Counter
+    from cs744_ddp_tpu_torch.ops import bnpool
+    with open(path) as f:
+        trace = json.load(f)
+    names = Counter(e.get("name", "") for e in trace["traceEvents"]
+                    if e.get("cat") == "kernel")
+    return bnpool.profiled_runs(names), sum(names.values())
+
+
+def phase_telemetry(card_line):
+    """``--telemetry-out`` and ``--profile-dir``; see the module
+    docstring.  Returns each path's kernel runs."""
+    import contextlib
+    import io
+    import torch.distributed as dist
+    from cs744_ddp_tpu_torch import cli
+    from cs744_ddp_tpu_torch.ops import bnpool
+    from cs744_ddp_tpu_torch.train.step import WARMUP_ITERS
+    from cs744_ddp_tpu_torch.utils.metrics import Stopwatch
+
+    check(not dist.is_initialized(), "a process group exists already")
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-m", "cs744_ddp_tpu_torch.utils.profile_telemetry"],
+        capture_output=True, text=True, timeout=900, cwd=root)
+    check(proc.returncode == 0, f"profile_telemetry failed:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    for line in proc.stdout.splitlines():
+        if line.startswith("{"):
+            r = json.loads(line)
+            check(r["same"] == {"round_trips": True, "runs": True},
+                  f"telemetry {r['precision']}: round trips or kernel runs "
+                  f"differ off and on: {r}")
+        else:
+            print(line)
+    paths = {}
+    want_runs = 5 * (WARMUP_ITERS + TELEMETRY_STEPS)
+    with tempfile.TemporaryDirectory() as tmp:
+        for precision in ("f32", "bf16"):
+            run_dir = os.path.join(tmp, f"run_{precision}")
+            argv = ["--strategy", "allreduce", "--precision", precision,
+                    "--limit-train-batches", str(TELEMETRY_STEPS),
+                    "--limit-eval-batches", str(TELEMETRY_EVAL),
+                    "--telemetry-out", run_dir]
+            prof_dir = os.path.join(tmp, "profile")
+            if precision == "f32":
+                argv += ["--profile-dir", prof_dir]
+            bnpool.reset_launch_counts()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out), Stopwatch() as wall:
+                cli.main(argv)
+            runs = bnpool.executed_counts()
+            label = f"telemetry cli {precision}"
+            check(runs == variants(precision, want_runs),
+                  f"{label}: kernels ran {runs} times on the device, want "
+                  f"{variants(precision, want_runs)}")
+            check("Test set: Average loss" in out.getvalue(),
+                  f"{label}: no test line in\n{out.getvalue()[-2000:]}")
+            trips, nsteps, summary = check_run_dir(label, run_dir, precision)
+            paths[f"telemetry/cli {precision} ({TELEMETRY_STEPS} steps)"] \
+                = runs
+            steady_ms = 1e3 * summary["steady_step_time_s"]["mean"]
+            print(f"[telemetry] cli vgg11 {precision} allreduce, batch "
+                  f"{BATCH}, --limit-train-batches {TELEMETRY_STEPS} "
+                  f"--telemetry-out: {nsteps} step events with finite "
+                  f"grad_sqnorm and step_index 0..{nsteps - 1}, "
+                  f"summary.json = summarize_events, host_round_trips "
+                  f"{trips} (windows + 2 = "
+                  f"{-(-TELEMETRY_STEPS // WINDOW) + 2}), device_memory and "
+                  f"memory gauges, collective_all-reduce_count "
+                  f"{summary['counters']['collective_all-reduce_count']}; "
+                  f"kernel runs {runs}; steady step {steady_ms:.4f} ms "
+                  f"(summary mean), {summary['steady_images_per_sec']:.1f} "
+                  f"images/s; the CLI's wall {wall.elapsed:.1f} s  ok  "
+                  f"[{card_line}]")
+            if precision == "f32":
+                traces = os.listdir(prof_dir)
+                check(traces == ["trace_epoch0_rank0.json"],
+                      f"--profile-dir wrote {traces}")
+                path = os.path.join(prof_dir, traces[0])
+                seen, kernels = trace_runs(path)
+                check(seen == runs, f"the profiled epoch's trace holds "
+                      f"{seen} bnpool runs, the device counted {runs}")
+                print(f"[telemetry] --profile-dir: {traces[0]} "
+                      f"({os.path.getsize(path)} bytes, {kernels} device "
+                      f"kernels) holds the bnpool kernels {seen}, the runs "
+                      f"counted on the device in the profiled epoch  ok")
+    check(not dist.is_initialized(), "the CLI left a process group")
+    print(f"[telemetry] phase telemetry: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--time-only", action="store_true",
@@ -2054,6 +2225,7 @@ def main(argv=None) -> int:
     by_path.update(phase_ft(card_line))
     by_path.update(phase_host(card_line))
     by_path.update(phase_elastic(card_line))
+    by_path.update(phase_telemetry(card_line))
 
     replaces = {"bnpool_sums": "cs744_ddp_tpu/ops/bnpool_pallas.py:147",
                 "bnpool_dx": "cs744_ddp_tpu/ops/bnpool_pallas.py:184"}

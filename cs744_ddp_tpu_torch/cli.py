@@ -18,6 +18,9 @@ GPU, with the reference training script's print schedule.
         --checkpoint-dir ckpt --chaos rank_death:25:1
     # one process per node, the reference's launch:
     python -m cs744_ddp_tpu_torch.cli --master HOST --num-nodes 2 --rank 0
+    # the run's telemetry, and a torch.profiler trace of its first epoch:
+    python -m cs744_ddp_tpu_torch.cli --telemetry-out run --profile-dir prof
+    python tools/telemetry_report.py run
 
 Each epoch is trained in 20-step windows, on the card as replays of one
 captured CUDA graph of the step, with one device-to-host fetch per window
@@ -52,6 +55,17 @@ processes with ``--device cpu``) on a fresh rendezvous port; a
 resumes it at a smaller world.  ``--resume-world M`` starts at world M (a
 checkpoint of any world is re-planned onto it).  The last line is
 ``elastic report: {json}``.
+
+``--telemetry-out DIR`` writes the reference's run directory from rank 0:
+``manifest.json`` (the run header; at the end also ``cuda_kernels``, what
+``ops/_build.py`` built or found built, and under ``--elastic`` the
+``elastic_report``), ``events.jsonl`` (step events, spans, counters,
+gauges) and ``summary.json`` (written however the run ends), which
+``tools/telemetry_report.py`` renders.  Under ``--elastic`` each
+generation's rank 0 appends to the same directory and this process writes
+the summary over all of them.  ``--profile-dir DIR`` traces the first
+trained epoch with ``torch.profiler`` into ``DIR/trace_epoch<E>_rank0.json``
+(a Chrome trace).
 """
 
 from __future__ import annotations
@@ -70,6 +84,7 @@ from .data import cifar10, native
 from .elastic import ElasticConfig, ElasticCoordinator, Generation
 from .ft import FTConfig, POLICIES, ChaosPlan, check_sites
 from .models import get_model
+from .obs import NULL, Telemetry, read_run
 from .ops import _build
 from .ops.sgd import SGDConfig
 from .parallel.mesh import (DEFAULT_PORT, destroy_distributed,
@@ -213,6 +228,17 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "resume); strong = pinned global batch re-bucketed "
                         "across the world with bitwise world-invariant "
                         "math (microshard step, elastic/step_elastic.py)")
+    p.add_argument("--telemetry-out", default=None, metavar="DIR",
+                   help="write structured run telemetry to this directory "
+                        "(rank 0): manifest.json (run header), events.jsonl "
+                        "(per-step events, spans, gauges, counters) and "
+                        "summary.json (steady-state percentiles); render "
+                        "with tools/telemetry_report.py.  Off by default "
+                        "(no file written)")
+    p.add_argument("--profile-dir", default=None, metavar="DIR",
+                   help="trace the first trained epoch with torch.profiler "
+                        "(CPU and CUDA activity) into a Chrome trace JSON "
+                        "in this directory (rank 0)")
     p.add_argument("--resume-world", type=int, default=None, metavar="M",
                    help="run/resume at world size M (overrides "
                         "--num-devices): checkpointed progress from any "
@@ -249,11 +275,29 @@ def ft_config_from_args(args: argparse.Namespace) -> Optional[FTConfig]:
                     verify_chunks=args.ft_verify_chunks)
 
 
-def _train(args: argparse.Namespace,
-           ft: Optional[FTConfig] = None) -> Trainer:
+def _rank_telemetry(args: argparse.Namespace, rank: int):
+    """The recorder of global rank ``rank``: ``--telemetry-out``'s on rank
+    0, NULL elsewhere (one stream, as the reference's one controller
+    writes)."""
+    if args.telemetry_out is None or rank != 0:
+        return NULL
+    return Telemetry(args.telemetry_out)
+
+
+def _finish_telemetry(telemetry, args: argparse.Namespace,
+                      **manifest) -> None:
+    """The end of a run's record, however the run ended: the kernel build
+    (and ``manifest``) joins the manifest, and the summary is written."""
+    telemetry.update_manifest({"cuda_kernels": _build.build_report(),
+                               **manifest})
+    telemetry.finalize(global_batch=args.batch_size)
+
+
+def _train(args: argparse.Namespace, ft: Optional[FTConfig] = None,
+           telemetry=NULL) -> Trainer:
     """Build the Trainer the flags describe (``ft``: the fault-tolerance
-    config, default the flags'), run it, and ``--save`` unless it was
-    stopped by a preemption or a rank death."""
+    config, default the flags'), run it (with ``--profile-dir``), and
+    ``--save`` unless it was stopped by a preemption or a rank death."""
     if args.deterministic:
         torch.backends.cudnn.deterministic = True
     trainer = Trainer(
@@ -268,8 +312,10 @@ def _train(args: argparse.Namespace,
         profile_phases=args.profile_phases, metrics_ring=args.metrics_ring,
         ft=ft_config_from_args(args) if ft is None else ft,
         host_augment=args.host_augment,
-        elastic=None if args.elastic == "off" else args.elastic)
-    trainer.run(args.epochs, checkpoint_dir=args.checkpoint_dir)
+        elastic=None if args.elastic == "off" else args.elastic,
+        telemetry=telemetry)
+    trainer.run(args.epochs, checkpoint_dir=args.checkpoint_dir,
+                profile_dir=args.profile_dir)
     if args.save and not trainer.preempted and trainer.rank_death is None:
         os.makedirs(args.save, exist_ok=True)
         torch.save(trainer.state.model.state_dict(),
@@ -280,15 +326,17 @@ def _train(args: argparse.Namespace,
 def _spawned_rank(local: int, args: argparse.Namespace) -> None:
     """One of ``--num-devices`` local ranks."""
     world = args.num_nodes * args.num_devices
+    rank = args.rank * args.num_devices + local
     if resolve_device(args.device).type == "cpu":
         torch.set_num_threads(max(1, (os.cpu_count() or 1)
                                   // args.num_devices))
-    initialize_distributed(args.master or "127.0.0.1", world,
-                           args.rank * args.num_devices + local, args.port,
-                           args.device, local_rank=local)
+    initialize_distributed(args.master or "127.0.0.1", world, rank,
+                           args.port, args.device, local_rank=local)
+    telemetry = _rank_telemetry(args, rank)
     try:
-        _train(args)
+        _train(args, telemetry=telemetry)
     finally:
+        _finish_telemetry(telemetry, args)
         destroy_distributed()
 
 
@@ -312,7 +360,9 @@ def _elastic_rank(local: int, args: argparse.Namespace, world: int,
                   members: Tuple[int, ...], chaos: List[str],
                   port: int) -> None:
     """Rank ``local`` of one elastic generation, on local device
-    ``members[local]``; rank 0 writes the generation's report."""
+    ``members[local]``; rank 0 writes the generation's report and appends
+    to ``--telemetry-out`` (the coordinator's process writes the
+    summary)."""
     device = resolve_device(args.device)
     if device.type == "cpu":
         torch.set_num_threads(_elastic_threads(args, world))
@@ -322,7 +372,7 @@ def _elastic_rank(local: int, args: argparse.Namespace, world: int,
         ft = ft_config_from_args(args)
         if ft is not None:
             ft = ft._replace(chaos=ChaosPlan.parse(chaos))
-        trainer = _train(args, ft)
+        trainer = _train(args, ft, _rank_telemetry(args, local))
         report = {"rank_death": trainer.rank_death,
                   "fired": getattr(trainer.chaos, "fired", [])}
         del trainer
@@ -361,7 +411,8 @@ def elastic_main(args: argparse.Namespace) -> dict:
     ladder, one launch of ``world`` local processes per generation;
     ``--resume-world M`` starts (or resumes a checkpointed run) at world
     M.  Requires --checkpoint-dir: recovery and resize both go through the
-    emergency checkpoint.  Prints and returns the coordinator's report."""
+    emergency checkpoint.  Prints and returns the coordinator's report,
+    which joins the ``--telemetry-out`` manifest."""
     if args.checkpoint_dir is None:
         raise SystemExit("--elastic requires --checkpoint-dir (recovery "
                          "and world-resize resume go through checkpoints)")
@@ -388,8 +439,18 @@ def elastic_main(args: argparse.Namespace) -> dict:
         world=world, global_batch=args.batch_size, protocol=args.elastic,
         chaos=ft.chaos if ft is not None else ChaosPlan.parse(None),
         probe=lambda members: probe_devices(members, device.type))
-    coord.run(args.epochs, checkpoint_dir=args.checkpoint_dir)
-    report = coord.report()
+    report = None
+    try:
+        coord.run(args.epochs, checkpoint_dir=args.checkpoint_dir)
+        report = coord.report()
+    finally:
+        if args.telemetry_out is not None:
+            # The generations' rank 0 processes wrote the manifest and the
+            # events; the report and the summary over all of them are this
+            # process's.
+            telemetry = Telemetry(args.telemetry_out)
+            telemetry.manifest = read_run(args.telemetry_out)[0]
+            _finish_telemetry(telemetry, args, elastic_report=report)
     print("elastic report: " + json.dumps(report))
     return report
 
@@ -423,9 +484,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         if args.num_nodes > 1:
             initialize_distributed(args.master, args.num_nodes, args.rank,
                                    args.port, args.device)
+        telemetry = _rank_telemetry(args, args.rank)
         try:
-            _train(args)
+            _train(args, telemetry=telemetry)
         finally:
+            _finish_telemetry(telemetry, args)
             if dist.is_initialized():     # also the Trainer's world-1 group
                 destroy_distributed()
         return

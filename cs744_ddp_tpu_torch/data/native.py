@@ -147,6 +147,29 @@ def load_library(source: Path = SOURCE,
     return lib
 
 
+_load_error: Optional[str] = None
+
+
+def available() -> bool:
+    """True when the library loads (building it first if needed); when
+    False, ``load_error()`` says why.  A probe for the run's manifest: the
+    wrappers still raise on a library that does not load."""
+    global _load_error
+    try:
+        load_library()
+    except NativeLoaderError as e:
+        _load_error = str(e)
+        return False
+    _load_error = None
+    return True
+
+
+def load_error() -> Optional[str]:
+    """Why the last ``available()`` found no library (None: it loaded, or
+    no probe was made)."""
+    return _load_error
+
+
 def _ptr(a: np.ndarray, ct):
     return a.ctypes.data_as(ctypes.POINTER(ct))
 

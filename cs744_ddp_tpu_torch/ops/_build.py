@@ -85,6 +85,7 @@ def build(log=None) -> Dict[str, float]:
             failed.append(f"{src} (nvcc exit {proc.returncode}):\n{text}")
             continue
         os.replace(tmp, out)
+        _BUILT[src] = round(seconds[src], 3)
         if log is not None and text.strip():
             log(f"nvcc {src}:\n{text.rstrip()}")
     if failed:
@@ -94,6 +95,19 @@ def build(log=None) -> Dict[str, float]:
 
 # Loaded libraries by source: a shared library is loaded once per process.
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# nvcc's seconds for each source this process compiled.
+_BUILT: Dict[str, float] = {}
+
+
+def build_report() -> Dict[str, dict]:
+    """What this process did for each source: ``{"library": file name,
+    "built": True, "nvcc_s": seconds}`` if it compiled it, ``"built":
+    False`` if it found the library in ``build/kernels/`` already, and
+    ``"loaded"`` whether the library is loaded.  The run manifest's
+    ``cuda_kernels``."""
+    return {src: {"library": _lib_path(src).name, "built": src in _BUILT,
+                  "nvcc_s": _BUILT.get(src), "loaded": src in _LIBS}
+            for src in SOURCES if src in _BUILT or src in _LIBS}
 
 
 def library(source: str) -> ctypes.CDLL:

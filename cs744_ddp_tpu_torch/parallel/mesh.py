@@ -116,7 +116,10 @@ class Group:
     """The default process group, as the strategies see it: every
     collective a strategy calls goes through one of these methods, which
     count it by kind, since the last ``reset_step()`` (``step_counts``)
-    and in all (``total_counts``).
+    and in all (``total_counts``), and the bytes of its result by kind
+    (``step_bytes``, ``total_bytes``: what ``all_reduce`` reduced in place,
+    the ``world`` tensors ``gather`` collects, what ``scatter`` and
+    ``all_gather`` write).
 
     The counts are kept on the host, so a step captured in a CUDA graph
     counts its collectives once, at capture; each replay then adds the
@@ -125,6 +128,12 @@ class Group:
 
     KINDS = ("all_reduce", "all_reduce_max", "gather", "scatter",
              "all_gather")
+    # Each kind under the name of the XLA collective the reference's
+    # telemetry counts in its step's HLO (a MAX all-reduce is an
+    # all-reduce there); gather and scatter have none and keep theirs.
+    OP_NAMES = {"all_reduce": "all-reduce", "all_reduce_max": "all-reduce",
+                "gather": "gather", "scatter": "scatter",
+                "all_gather": "all-gather"}
 
     def __init__(self, device: Optional[torch.device] = None):
         if not dist.is_initialized():
@@ -136,33 +145,40 @@ class Group:
         self.world = dist.get_world_size()
         self.step_counts: Counter = Counter()
         self.total_counts: Counter = Counter()
+        self.step_bytes: Counter = Counter()
+        self.total_bytes: Counter = Counter()
 
-    def _count(self, kind: str) -> None:
+    def _count(self, kind: str, nbytes: int) -> None:
         self.step_counts[kind] += 1
         self.total_counts[kind] += 1
+        self.step_bytes[kind] += nbytes
+        self.total_bytes[kind] += nbytes
 
     def reset_step(self) -> None:
         self.step_counts = Counter()
+        self.step_bytes = Counter()
 
-    def add_replayed(self, step: Counter) -> None:
+    def add_replayed(self, step: Counter, step_bytes: Counter) -> None:
         """Count one replay of a captured step whose collectives were
-        ``step``."""
+        ``step``, of ``step_bytes`` result bytes."""
         self.step_counts = Counter(step)
         self.total_counts.update(step)
+        self.step_bytes = Counter(step_bytes)
+        self.total_bytes.update(step_bytes)
 
     def all_reduce(self, t: torch.Tensor, async_op: bool = False):
         """Sum ``t`` over the ranks, in place."""
-        self._count("all_reduce")
+        self._count("all_reduce", _nbytes(t))
         return dist.all_reduce(t, async_op=async_op)
 
     def all_reduce_max(self, t: torch.Tensor) -> None:
         """Element-wise maximum of ``t`` over the ranks, in place."""
-        self._count("all_reduce_max")
+        self._count("all_reduce_max", _nbytes(t))
         dist.all_reduce(t, op=dist.ReduceOp.MAX)
 
     def gather(self, t: torch.Tensor) -> Optional[List[torch.Tensor]]:
         """Every rank's ``t`` on rank 0 (in rank order); None elsewhere."""
-        self._count("gather")
+        self._count("gather", self.world * _nbytes(t))
         out = [torch.empty_like(t) for _ in range(self.world)] \
             if self.rank == 0 else None
         dist.gather(t, out, dst=0)
@@ -171,14 +187,18 @@ class Group:
     def scatter(self, out: torch.Tensor,
                 chunks: Optional[Sequence[torch.Tensor]]) -> None:
         """Rank r receives rank 0's ``chunks[r]`` into ``out``."""
-        self._count("scatter")
+        self._count("scatter", _nbytes(out))
         dist.scatter(out, list(chunks) if self.rank == 0 else None, src=0)
 
     def all_gather(self, out: torch.Tensor, t: torch.Tensor) -> None:
         """Every rank's ``t`` concatenated along dim 0 in rank order, into
         ``out`` (``world * t.shape[0]`` rows), on every rank."""
-        self._count("all_gather")
+        self._count("all_gather", _nbytes(out))
         all_gather_into(out, t)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def all_gather_into(out: torch.Tensor, t: torch.Tensor) -> None:

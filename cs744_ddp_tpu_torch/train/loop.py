@@ -58,6 +58,17 @@
     emergency checkpoint and ``run`` returns with ``rank_death`` set, for
     the coordinator (``elastic/coordinator.py``) to relaunch a smaller
     world.
+  * ``telemetry`` (``obs/telemetry.py``; ``NULL`` by default): the
+    reference's structured record of the run, on rank 0 alone — the run
+    manifest, one step event per trained step (on the windowed paths with
+    the metric ring's ``grad_sqnorm`` and absolute ``step_index``, from the
+    window's one fetch), spans (windows, warm-up and capture, eval, saves,
+    the host pipeline's stages on its producer thread), counters (host
+    round trips, faults, the collectives of one step) and gauges (memory,
+    queue depths, the ranks' step times).  Every record is built from what
+    the host already holds: no record adds a fetch, a sync or a kernel.
+    ``run(profile_dir=...)`` traces the first trained epoch with
+    ``torch.profiler`` into a Chrome trace JSON.
 """
 
 from __future__ import annotations
@@ -65,6 +76,7 @@ from __future__ import annotations
 import contextlib
 import os
 import queue
+import resource
 from collections import Counter
 import signal
 import threading
@@ -87,7 +99,7 @@ from ..ft import (NULL_CHAOS, ChaosError, FTConfig, NonFiniteError, POLICIES,
                   PreemptedError, PreemptionGuard, RankDeathError,
                   check_sites)
 from ..ft import supervisor as ftsup
-from ..obs import ringbuf
+from ..obs import NULL, git_sha, ringbuf
 from ..ops import sgd
 from ..parallel import Group, get_strategy, initialize_distributed
 from ..parallel import strategies
@@ -101,6 +113,8 @@ SEED = 0                # the reference's torch.manual_seed(0)
 STRATEGIES = tuple(strategies.STRATEGIES)
 # --precision -> the activations' dtype (None: f32 throughout).
 PRECISIONS = {"f32": None, "bf16": torch.bfloat16}
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 
 def _rank_batch_cols(n_examples: int, global_batch: int, epoch: int,
@@ -146,6 +160,24 @@ def _eval_batches(split: cifar10.Split, global_batch: int
 
 def _silent(_: str) -> None:
     pass
+
+
+def emit_memory_gauges(telemetry, device: torch.device, **attrs) -> None:
+    """Host and device memory at a window or epoch boundary: the peak
+    host RSS (``resource.getrusage``) and, on the card, the bytes the
+    caching allocator holds live (``torch.cuda.memory_allocated``, a host
+    count: no sync).  On the CPU the host field alone, as the reference's
+    on a backend without a device memory API.  The guard is inside, so a
+    call site is one line and the NULL recorder costs one attribute
+    check."""
+    if not telemetry.enabled:
+        return
+    rss_kib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    payload = {"host_rss_peak_mib": round(rss_kib / 1024.0, 1)}
+    if device.type == "cuda":
+        payload["device_live_mib"] = round(
+            torch.cuda.memory_allocated(device) / 2 ** 20, 2)
+    telemetry.gauge("memory", payload, **attrs)
 
 
 def elastic_config(elastic, global_batch: int, *, host_augment: bool = False,
@@ -310,7 +342,11 @@ class Trainer:
     module docstring; ``elastic_config`` says what strong scaling
     refuses).  After a ``rank_death``, ``run`` returns with
     ``rank_death = (rank, epoch, step)``; ``resume_plan`` is the
-    ``ResumePlan`` of an elastic mid-epoch resume."""
+    ``ResumePlan`` of an elastic mid-epoch resume.
+
+    ``telemetry``: the recorder (``obs.Telemetry``), kept on rank 0 alone
+    (the others get ``NULL``, as the reference's one controller writes one
+    stream); the manifest is written here."""
 
     def __init__(self, model: str = "vgg11", strategy: str = "allreduce", *,
                  precision: str = "f32",
@@ -326,7 +362,8 @@ class Trainer:
                  log: Callable[[str], None] = print,
                  ft: Optional[FTConfig] = None,
                  host_augment: bool = False, host_chunks: int = 4,
-                 reshuffle_each_epoch: bool = False, elastic=None):
+                 reshuffle_each_epoch: bool = False, elastic=None,
+                 telemetry=NULL):
         if host_chunks < 1:
             raise ValueError(f"host_chunks must be >= 1, got {host_chunks}")
         if precision not in PRECISIONS:
@@ -418,6 +455,7 @@ class Trainer:
         self.limit_train_batches = limit_train_batches
         self.limit_eval_batches = limit_eval_batches
         self.log = log if self.rank == 0 else _silent
+        self.telemetry = telemetry if self.rank == 0 else NULL
         if turn_deterministic:
             self.log("elastic strong: deterministic cuDNN turned on (the "
                      "update must be bitwise the same at every world)")
@@ -474,9 +512,170 @@ class Trainer:
         # each window's chunks, and the producer's seconds by phase.
         self.last_chunk_waits: List[float] = []
         self.last_producer_times: Counter = Counter()
+        self._window_prepared = False
+        self._collective_stats_emitted = False
+        self.profile_trace: Optional[str] = None
         if self._nf_policy == "restore":
             # "The last checkpoint" before any save is the initial state.
             self._snapshot_rollback()
+        if self.telemetry.enabled:
+            self._write_manifest(precision, host_augment, host_chunks,
+                                 profile_phases)
+
+    # -- telemetry (obs/) ---------------------------------------------------
+
+    def _write_manifest(self, precision: str, host_augment: bool,
+                        host_chunks: int, profile_phases: bool) -> None:
+        """The run header, with the reference's keys; ``torch_version``,
+        ``cuda_version`` and the device's own ``backend`` in place of its
+        JAX version and backend."""
+        ft = self.ft
+        ft_manifest = None
+        if ft is not None:
+            ft_manifest = {
+                "nonfinite": self._nf_policy,
+                "chaos": self.chaos.spec() if self.chaos.enabled else [],
+                "put_timeout_s": ft.put_timeout_s,
+                "put_retries": ft.put_retries,
+                "stall_timeout_s": ft.stall_timeout_s,
+                "producer_restarts": ft.producer_restarts,
+                "verify_chunks": self._verify_chunks,
+                "degrade_staging": ft.degrade_staging,
+            }
+        cuda = self.device.type == "cuda"
+        self.telemetry.write_manifest({
+            "fault_tolerance": ft_manifest,
+            "model": self.model_name,
+            "strategy": self.strategy_name,
+            "world_size": self.world,
+            "global_batch": self.global_batch,
+            "precision": precision,
+            "augment": self.augment,
+            "host_augment": host_augment,
+            "host_chunks": host_chunks,
+            "elastic": (None if self.elastic is None else
+                        {"protocol": self.elastic.protocol,
+                         "microshards": self.elastic.microshards}),
+            "profile_phases": profile_phases,
+            "metrics_ring": self.metrics_ring,
+            "seed": self.seed,
+            "reshuffle_each_epoch": self.reshuffle_each_epoch,
+            "real_data": self.real_data,
+            "lr": self.sgd_cfg.lr, "momentum": self.sgd_cfg.momentum,
+            "weight_decay": self.sgd_cfg.weight_decay,
+            "torch_version": torch.__version__,
+            "cuda_version": torch.version.cuda,
+            "backend": self.device.type,
+            "device_kind": (torch.cuda.get_device_name(self.device)
+                            if cuda else "cpu"),
+            "num_devices": self.world,
+            "native_loader": {"available": native.available(),
+                              "error": native.load_error()},
+            "git_sha": git_sha(REPO_ROOT),
+        })
+
+    def _emit_device_gauges(self, epoch: int) -> None:
+        """The card's memory at an epoch's end: the bytes the allocator
+        holds live and at its peak, and the device's total (nothing on the
+        CPU, as the reference's CPU backend has no ``memory_stats``)."""
+        if self.device.type != "cuda":
+            return
+        _, total = torch.cuda.mem_get_info(self.device)
+        self.telemetry.gauge("device_memory", {
+            "bytes_in_use": torch.cuda.memory_allocated(self.device),
+            "peak_bytes_in_use": torch.cuda.max_memory_allocated(self.device),
+            "bytes_limit": total}, device=self.device.index, epoch=epoch)
+
+    def _emit_collective_telemetry(self) -> None:
+        """Once per Trainer, after its first trained step: the collectives
+        of one step under the reference's op names (``Group.OP_NAMES``),
+        counted and sized by the ``Group`` (``step_counts`` and
+        ``step_bytes``; after a replay, the captured step's), their totals,
+        and what a compressed tier saves against every f32 gradient byte
+        once.  ``chain_depth`` is None: there is no HLO to read it from."""
+        if self._collective_stats_emitted:
+            return
+        self._collective_stats_emitted = True
+        ops: Dict[str, Dict[str, int]] = {}
+        if self.group is not None:
+            for kind, n in self.group.step_counts.items():
+                entry = ops.setdefault(Group.OP_NAMES[kind],
+                                       {"count": 0, "bytes": 0})
+                entry["count"] += n
+                entry["bytes"] += self.group.step_bytes[kind]
+        mib = {op: round(e["bytes"] / 2 ** 20, 2) for op, e in ops.items()}
+        for op, entry in ops.items():
+            self.telemetry.counter(f"collective_{op}_count", entry["count"])
+            self.telemetry.counter(f"collective_{op}_result_mib", mib[op])
+        total_mib = round(sum(mib.values()), 2)
+        self.telemetry.gauge("collective_totals", {
+            "total_count": sum(e["count"] for e in ops.values()),
+            "total_result_mib": total_mib, "chain_depth": None})
+        grad_mib = sum(p.numel() * 4 for p in
+                       self.state.model.parameters()) / 2 ** 20
+        sent_mib = sum(e["bytes"] for e in ops.values()) / 2 ** 20
+        self.telemetry.gauge("comm_bytes_saved", {
+            "strategy": self.strategy_name,
+            "baseline_grad_mib": round(grad_mib, 3),
+            "strategy_result_mib": total_mib,
+            "saved_mib": round(max(0.0, grad_mib - sent_mib), 3)})
+
+    def _record_window(self, timers: WindowedTimers,
+                       cols: steplib.WindowColumns, per_iter: float) -> None:
+        """Feed a drained window into the timers, each step at the
+        window's mean time; with telemetry on and the ring, each step event
+        also carries the ring's ``grad_sqnorm`` and the step's absolute
+        index (the reference's ``_consume_ring``)."""
+        if self.telemetry.enabled:
+            self._emit_collective_telemetry()
+            if cols.grad_sqnorm is not None:
+                for loss, gsq, step in zip(cols.loss, cols.grad_sqnorm,
+                                           cols.steps):
+                    timers.record(float(loss), per_iter,
+                                  extra={"grad_sqnorm": float(gsq),
+                                         "step_index": int(step)})
+                return
+        for loss in cols.loss:
+            timers.record(float(loss), per_iter)
+
+    def _prepare_window(self, window: steplib.TrainWindow) -> None:
+        """Before the window's first run: its step warmed up and captured
+        (on the card; the CPU runs it eagerly), inside a ``compile_warmup``
+        span naming the program, as the reference compiles its window
+        ahead of time."""
+        if self._window_prepared:
+            return
+        program = "train_window_host" if self.host_augment \
+            else "train_window"
+        with self.telemetry.span("compile_warmup", program=program,
+                                 graph=self.device.type == "cuda"):
+            window.step.prepare()
+        self._window_prepared = True
+
+    @contextlib.contextmanager
+    def _profiled(self, profile_dir: str, epoch: int) -> Iterator[None]:
+        """``torch.profiler`` over the block (CPU activity, and the card's
+        on CUDA), written as a Chrome trace JSON into ``profile_dir`` when
+        it ends, however it ends; on rank 0 (the others run unprofiled).
+        ``profile_trace`` is the file's path."""
+        if self.rank != 0:
+            yield
+            return
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(profile_dir, exist_ok=True)
+        prof = profile(activities=activities)
+        prof.start()
+        try:
+            yield
+        finally:
+            prof.stop()
+            path = os.path.join(profile_dir,
+                                f"trace_epoch{epoch}_rank{self.rank}.json")
+            prof.export_chrome_trace(path)
+            self.profile_trace = path
 
     # -- on-device staging --------------------------------------------------
 
@@ -620,6 +819,15 @@ class Trainer:
             done.synchronize()
         return t.cpu().numpy()
 
+    def _count_round_trip(self, site: str, **attrs) -> None:
+        """The telemetry of one ``_fetch`` of training or eval, tagged with
+        its ``site`` (the reference's names: ``window_drain``,
+        ``window_fetch``, ``step_fetch``, ``eval``; and ``forward_fetch``,
+        the per-step path's forward, which the reference fetches
+        uncounted)."""
+        if self.telemetry.enabled:
+            self.telemetry.counter("host_round_trips", 1, site=site, **attrs)
+
     # -- fault tolerance (ft/) ----------------------------------------------
 
     def _snapshot_rollback(self) -> None:
@@ -650,17 +858,20 @@ class Trainer:
         if self._nf_policy == "skip":
             self._epoch_nf[0] += bad
             self.nonfinite_skipped += bad
+            self.telemetry.counter("nonfinite_skipped", bad, epoch=epoch)
             return
         # restore: the select already skipped the bad update; also rewind
         # to the last checkpoint snapshot: the steps since it are lost
         # (training goes on with the NEXT batch, not a replay).
         self._epoch_nf[1] += bad
         self.nonfinite_restored += bad
+        self.telemetry.counter("nonfinite_restored", bad, epoch=epoch)
         self._restore_rollback()
         self.log(f"Non-finite step: state rolled back to the last "
                  f"checkpoint snapshot (epoch {epoch})")
 
     def _record_chaos(self, site: str, step: int) -> None:
+        self.telemetry.counter("chaos_injected", 1, site=site, step=step)
         self.log(f"chaos: injected {site} at step {step}")
 
     def _rank_step_times(self, t: float) -> List[float]:
@@ -698,10 +909,16 @@ class Trainer:
         if self._straggler is None:
             self._straggler = StragglerDetector(self.world)
         for r, t in enumerate(self._rank_step_times(per_iter + stall)):
+            if self.telemetry.enabled:
+                self.telemetry.gauge("rank_step_time_s", t, rank=r,
+                                     epoch=epoch, step=step)
             self._straggler.observe(r, t)
         for r in self._straggler.check():
             self.log(f"elastic: rank {r} straggling "
                      f"(EWMA {self._straggler.ewma(r):.3f}s vs peers)")
+            if self.telemetry.enabled:
+                self.telemetry.counter("straggler_flagged", 1, rank=r,
+                                       epoch=epoch, step=step)
         if self.chaos.enabled and \
                 self.chaos.fire_reached("rank_death", step):
             planned = self.chaos.fired[-1][1]
@@ -733,10 +950,12 @@ class Trainer:
         """One eager step; its loss and guard flag in ONE fetch."""
         out = self.train_step.with_ok(self.state, x, y, epoch, idx)
         if out.ok is None:
-            return float(self._fetch(out.loss)), None
-        loss, ok = self._fetch(torch.stack((out.loss,
-                                            out.ok.to(torch.float32))))
-        return float(loss), float(ok)
+            loss, ok = self._fetch(out.loss), None
+        else:
+            loss, ok = self._fetch(torch.stack((out.loss,
+                                                out.ok.to(torch.float32))))
+        self._count_round_trip("step_fetch")
+        return float(loss), None if ok is None else float(ok)
 
     # -- the host-augment pipeline -------------------------------------------
 
@@ -802,15 +1021,17 @@ class Trainer:
         device: (x, y, ready).  On the card the copies run on the copy
         stream and ``ready`` is the event after them (``_ready`` orders the
         compute stream after it); on the CPU ``ready`` is None."""
-        xh = self._host_transform(imgs, epoch, it)
+        with self.telemetry.span("host_augment"):
+            xh = self._host_transform(imgs, epoch, it)
         yh = np.asarray(labs, np.int64)
-        if self._copy_stream is None:
-            return torch.from_numpy(xh), torch.from_numpy(yh), None
-        with torch.cuda.stream(self._copy_stream):
-            x = torch.from_numpy(xh).to(self.device, non_blocking=True)
-            y = torch.from_numpy(yh).to(self.device, non_blocking=True)
-        ready = torch.cuda.Event()
-        ready.record(self._copy_stream)
+        with self.telemetry.span("prefetch_put"):
+            if self._copy_stream is None:
+                return torch.from_numpy(xh), torch.from_numpy(yh), None
+            with torch.cuda.stream(self._copy_stream):
+                x = torch.from_numpy(xh).to(self.device, non_blocking=True)
+                y = torch.from_numpy(yh).to(self.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._copy_stream)
         return x, y, ready
 
     def _ready(self, ready: Optional[torch.cuda.Event],
@@ -874,6 +1095,10 @@ class Trainer:
         last_item_t = time.time()
         try:
             while True:
+                if self.telemetry.enabled:
+                    # Before the blocking get: 0 means the consumer is
+                    # about to wait on the producer.
+                    self.telemetry.gauge("prefetch_queue_depth", q.qsize())
                 try:
                     kind, payload = q.get(timeout=self.STALL_POLL_S)
                     last_item_t = time.time()
@@ -973,11 +1198,15 @@ class Trainer:
     def _on_put_timeout(self, elapsed_s: float) -> None:
         """Watchdog callback: a chunk put overran its deadline — detection
         only (the put may still complete)."""
+        if self.telemetry.enabled:
+            self.telemetry.counter("staging_put_timeout")
         self.log(f"ft: chunk device_put exceeded its "
                  f"{self.ft.put_timeout_s}s watchdog deadline "
                  f"({elapsed_s:.1f}s elapsed)")
 
     def _on_put_retry(self, attempt: int, exc: BaseException) -> None:
+        if self.telemetry.enabled:
+            self.telemetry.counter("staging_put_retry")
         self.log(f"ft: chunk device_put attempt {attempt + 1} failed "
                  f"({exc!r}); retrying with backoff")
 
@@ -1088,6 +1317,8 @@ class Trainer:
             chunk_sums: list = []   # fill-time crc32 per row
 
             def on_fence_timeout(elapsed_s):
+                if self.telemetry.enabled:
+                    self.telemetry.counter("staging_fence_timeout")
                 self.log(f"ft: arena slot fence exceeded its "
                          f"{fence_timeout}s watchdog deadline")
 
@@ -1108,6 +1339,8 @@ class Trainer:
                     return
                 for j in ftsup.verify_checksums(chunk_x[:k], chunk_sums):
                     it_j, cols_j = chunk_meta[j]
+                    if self.telemetry.enabled:
+                        self.telemetry.counter("staging_corruption_repaired")
                     self.log(f"ft: staged batch {it_j} failed its checksum; "
                              f"re-staging from the resident dataset")
                     self._fill_row(chunk_x[j], cols_j, epoch, it_j)
@@ -1126,8 +1359,9 @@ class Trainer:
                 t0 = clock()
                 inject_and_verify(k, lo)
                 t1 = clock()
-                ready = self._supervised_put(
-                    lambda: self._copy_chunk(slot, k), lo, lo + k)
+                with self.telemetry.span("chunk_put", batches=k, last=last):
+                    ready = self._supervised_put(
+                        lambda: self._copy_chunk(slot, k), lo, lo + k)
                 arena.retire(slot, ready)
                 item = Chunk(k, lo, last, slot, ready)
                 chunk_x, slot = None, -1
@@ -1169,7 +1403,8 @@ class Trainer:
                     times["claim"] += clock() - t1
                 t0 = clock()
                 row = len(chunk_meta)
-                self._fill_row(chunk_x[row], cols, epoch, it)
+                with self.telemetry.span("host_augment"):
+                    self._fill_row(chunk_x[row], cols, epoch, it)
                 slots.host_labels[slot].numpy()[row] = split.labels[cols]
                 chunk_meta.append((it, cols))
                 t1 = clock()
@@ -1209,7 +1444,8 @@ class Trainer:
                     epoch, it)))
                 return
             x = np.empty((1, self.per_rank_batch, 32, 32, 3), np.uint8)
-            self._fill_row(x[0], cols, epoch, it)
+            with self.telemetry.span("host_augment"):
+                self._fill_row(x[0], cols, epoch, it)
             last = (it + 1) % WINDOW == 0 or (it + 1) == nlim
             yield ("chunk", Chunk(1, it, last, None, None, (
                 x, np.asarray(split.labels[cols], np.int64)[None])))
@@ -1231,13 +1467,17 @@ class Trainer:
                                    f"{start + row}")
             dst = (window.images[row:row + c.k], window.labels[row:row + c.k])
             if c.slot is None:
-                src = tuple(torch.from_numpy(a) for a in c.host)
+                # The degraded mode's chunk: this copy is its put.
+                with self.telemetry.span("chunk_put", batches=c.k,
+                                         degraded=True):
+                    for d, a in zip(dst, c.host):
+                        d.copy_(torch.from_numpy(a))
             else:
                 if c.ready is not None:
                     stream.wait_event(c.ready)
-                src = (slots.images[c.slot][:c.k], slots.labels[c.slot][:c.k])
-            for d, s_ in zip(dst, src):
-                d.copy_(s_)
+                for d, s_ in zip(dst, (slots.images[c.slot][:c.k],
+                                       slots.labels[c.slot][:c.k])):
+                    d.copy_(s_)
             row += c.k
         after = None
         if stream is not None:
@@ -1262,7 +1502,8 @@ class Trainer:
         synchronous mode (``_iter_host_window_chunks_sync``).  Both keep
         the training stream bitwise: batches are keyed by absolute index,
         and ``trained`` advances a whole window at a time."""
-        timers = WindowedTimers(self.log)
+        timers = WindowedTimers(self.log, telemetry=self.telemetry,
+                                epoch=epoch)
         # The arena, the device chunks and the window buffer exist before
         # the producer starts and before the window's capture.
         window = self.train_window()
@@ -1285,21 +1526,32 @@ class Trainer:
             while True:
                 t_wait = time.time()
                 try:
-                    item = next(chunk_iter, None)
+                    # chunk_wait: how long the consumer waits on the
+                    # producer, ~0 but for the first window when the
+                    # staging overlaps.
+                    with self.telemetry.span("chunk_wait"):
+                        item = next(chunk_iter, None)
                 except Exception as e:
                     if not self._supervise:
                         raise
                     self.producer_failures += 1
+                    if self.telemetry.enabled:
+                        self.telemetry.counter("producer_failure",
+                                               error=type(e).__name__)
                     chunk_iter.close()
                     self._release_chunks()
                     pending = []
                     if restarts_left > 0:
                         restarts_left -= 1
+                        if self.telemetry.enabled:
+                            self.telemetry.counter("producer_restart")
                         self.log(f"ft: staging failed at step {trained} "
                                  f"({type(e).__name__}: {e}); restarting "
                                  f"the producer from step {trained}")
                     else:
                         self.staging_degraded = True
+                        if self.telemetry.enabled:
+                            self.telemetry.counter("staging_degraded")
                         self.log(f"ft: staging failed again at step "
                                  f"{trained} ({type(e).__name__}: {e}); "
                                  f"restart budget exhausted — degrading to "
@@ -1320,33 +1572,41 @@ class Trainer:
                     t0 = time.time()
                     loss, ok = self._step_fetch(x, y, epoch, it)
                     timers.record(loss, time.time() - t0, steady=False)
+                    if self.telemetry.enabled:
+                        self._emit_collective_telemetry()
                     trained = it + 1
                     if ok is not None:
                         self._handle_nonfinite([ok], epoch)
                     self._check_preempt(epoch, trained)
                     continue
                 pending.append(payload)
+                if self.telemetry.enabled:
+                    self.telemetry.gauge("window_chunks_pending",
+                                         len(pending))
                 if not payload.last:
                     continue
                 w = self._assemble(pending, trained)
                 pending = []
                 self.last_chunk_waits.append(waited)
                 waited = 0.0
+                self._prepare_window(window)
                 t0 = time.time()
                 fetched = self._fetch(window(epoch, trained, w))
                 per_iter = (time.time() - t0) / w
-                losses, oks = window.columns(fetched, trained, w)
-                for loss in losses:
-                    timers.record(float(loss), per_iter)
+                self._count_round_trip(self._window_site(), epoch=epoch)
+                cols = window.columns(fetched, trained, w)
+                self._record_window(timers, cols, per_iter)
                 if self._nf_chaos_steps and self.chaos.fire_range(
                         "nonfinite_grad", trained, trained + w):
                     self._record_chaos("nonfinite_grad", next(
                         s for s in self._nf_chaos_steps
                         if trained <= s < trained + w))
                 trained += w
-                if oks is not None:
-                    self._handle_nonfinite(oks, epoch)
+                if cols.ok is not None:
+                    self._handle_nonfinite(cols.ok, epoch)
                 self._rank_boundary(epoch, trained, per_iter)
+                emit_memory_gauges(self.telemetry, self.device, epoch=epoch,
+                                   step=trained)
                 self._check_preempt(epoch, trained)
         finally:
             chunk_iter.close()
@@ -1383,9 +1643,15 @@ class Trainer:
                      f"{self._epoch_nf[1]} rollback(s)")
         return timers
 
+    def _window_site(self) -> str:
+        """The round-trip site of a window's fetch, as the reference names
+        it: the ring's drain, or the window's losses without the ring."""
+        return "window_drain" if self.metrics_ring else "window_fetch"
+
     def _train_model_windowed(self, epoch: int,
                               start_step: int) -> WindowedTimers:
-        timers = WindowedTimers(self.log)
+        timers = WindowedTimers(self.log, telemetry=self.telemetry,
+                                epoch=epoch)
         staged = self._stage_train_epoch(epoch)
         window = self.train_window()
         nbatches = staged.images.shape[0]
@@ -1393,20 +1659,28 @@ class Trainer:
         self._check_preempt(epoch, start)
         while start < nbatches:
             w = min(WINDOW - start % WINDOW, nbatches - start)
+            self._prepare_window(window)
             t0 = time.time()
-            fetched = self._fetch(window(epoch, start, w))
+            # Tagged with the strategy, so that the timeline attributes a
+            # window's wall time to its tier.
+            with self.telemetry.span("train_window",
+                                     strategy=self.strategy_name,
+                                     start=start, batches=w):
+                fetched = self._fetch(window(epoch, start, w))
             per_iter = (time.time() - t0) / w
-            losses, oks = window.columns(fetched, start, w)
-            for loss in losses:
-                timers.record(float(loss), per_iter)
+            self._count_round_trip(self._window_site(), epoch=epoch)
+            cols = window.columns(fetched, start, w)
+            self._record_window(timers, cols, per_iter)
             if self._nf_chaos_steps and \
                     self.chaos.fire_range("nonfinite_grad", start, start + w):
                 self._record_chaos("nonfinite_grad", next(
                     s for s in self._nf_chaos_steps if start <= s < start + w))
             start += w
-            if oks is not None:
-                self._handle_nonfinite(oks, epoch)
+            if cols.ok is not None:
+                self._handle_nonfinite(cols.ok, epoch)
             self._rank_boundary(epoch, start, per_iter)
+            emit_memory_gauges(self.telemetry, self.device, epoch=epoch,
+                               step=start)
             self._check_preempt(epoch, start)
         if staged.tail is not None and start_step <= nbatches:
             t0 = time.time()
@@ -1415,6 +1689,8 @@ class Trainer:
                 self._record_chaos("nonfinite_grad", nbatches)
             loss, ok = self._step_fetch(*staged.tail, epoch, nbatches)
             timers.record(loss, time.time() - t0, steady=False)
+            if self.telemetry.enabled:
+                self._emit_collective_telemetry()
             if ok is not None:
                 self._handle_nonfinite([ok], epoch)
         self.last_epoch_timers = timers
@@ -1440,7 +1716,8 @@ class Trainer:
         ``host_augment`` the batches are the host pipeline's f32 ones,
         prepared on the producer thread while the step before runs
         (``_iter_host_batches``)."""
-        timers = WindowedTimers(self.log)
+        timers = WindowedTimers(self.log, telemetry=self.telemetry,
+                                epoch=epoch)
         self._check_preempt(epoch, start_step)
         batches = self._iter_host_batches(epoch, start_step) \
             if self.host_augment else self._device_batches(epoch, start_step)
@@ -1450,6 +1727,7 @@ class Trainer:
                 t0 = time.time()
                 self._fetch(self.forward_step(x, y))
                 fwd_time = time.time() - t0
+                self._count_round_trip("forward_fetch")
                 if self._nf_chaos_steps and \
                         self.chaos.fire("nonfinite_grad", it):
                     self._record_chaos("nonfinite_grad", it)
@@ -1457,6 +1735,8 @@ class Trainer:
                 loss, ok = self._step_fetch(x, y, epoch, it)
                 timers.record(loss, time.time() - t0, fwd_time,
                               steady=x.shape[0] == self.per_rank_batch)
+                if self.telemetry.enabled:
+                    self._emit_collective_telemetry()
                 if ok is not None:
                     self._handle_nonfinite([ok], epoch)
                 self._check_preempt(epoch, it + 1)
@@ -1466,10 +1746,13 @@ class Trainer:
     def test_model(self) -> Tuple[float, int, float]:
         """Evaluate and print the script's line: average CE per example,
         correct/total, percent."""
-        loss_sum, correct = self.evaluate(*self._stage_eval())
-        # One fetch; the f32 sum and a count below 2**53 are exact in f64.
-        loss_sum, correct = self._fetch(
-            torch.stack([loss_sum.double(), correct.double()]))
+        with self.telemetry.span("eval"):
+            loss_sum, correct = self.evaluate(*self._stage_eval())
+            # One fetch; the f32 sum and a count below 2**53 are exact in
+            # f64.
+            loss_sum, correct = self._fetch(
+                torch.stack([loss_sum.double(), correct.double()]))
+            self._count_round_trip("eval")
         n = len(self.test_split.labels)
         if self.limit_eval_batches is not None:
             n = min(n, self.limit_eval_batches * self.global_batch)
@@ -1664,9 +1947,13 @@ class Trainer:
             return epoch, 0
         return 0, 0
 
-    def run(self, epochs: int = 1,
-            checkpoint_dir: Optional[str] = None) -> None:
+    def run(self, epochs: int = 1, checkpoint_dir: Optional[str] = None,
+            profile_dir: Optional[str] = None) -> None:
         """Epochs of train + eval with the epoch timing line.
+
+        With ``profile_dir``: the first epoch this run trains, under
+        ``torch.profiler``, into a Chrome trace JSON there (rank 0;
+        ``profile_trace`` is its path).
 
         With ``checkpoint_dir``: resume from its newest save (the config
         guard refuses another run's directory), and save after every
@@ -1691,15 +1978,25 @@ class Trainer:
                 self._preempt_guard = PreemptionGuard(log=self.log).install()
             if start_epoch >= epochs:
                 self.log(f"All {epochs} epoch(s) already checkpointed; "
-                         f"nothing to run")
+                         f"nothing to run"
+                         + (" (profile_dir ignored)" if profile_dir else ""))
             for epoch in range(start_epoch, epochs):
                 t0 = time.time()
                 try:
-                    self.train_model(epoch, start_step=start_step)
+                    if profile_dir is not None and epoch == start_epoch:
+                        with self._profiled(profile_dir, epoch):
+                            self.train_model(epoch, start_step=start_step)
+                    else:
+                        self.train_model(epoch, start_step=start_step)
                 except PreemptedError as e:
                     self.preempted = True
+                    if self.telemetry.enabled:
+                        self.telemetry.counter("preemptions", epoch=e.epoch,
+                                               step=e.step)
                     if mngr is not None:
-                        self._save(mngr, e.epoch, e.step)
+                        with self.telemetry.span("checkpoint_save_mid_epoch",
+                                                 epoch=e.epoch, step=e.step):
+                            self._save(mngr, e.epoch, e.step)
                         self.log(f"Preempted at epoch {e.epoch} step "
                                  f"{e.step}; emergency checkpoint saved")
                     else:
@@ -1708,8 +2005,13 @@ class Trainer:
                                  f"since the last save is lost")
                     return
                 except RankDeathError as e:
+                    if self.telemetry.enabled:
+                        self.telemetry.counter("rank_deaths", rank=e.rank,
+                                               epoch=e.epoch, step=e.step)
                     if mngr is not None:
-                        self._save(mngr, e.epoch, e.step)
+                        with self.telemetry.span("checkpoint_save_mid_epoch",
+                                                 epoch=e.epoch, step=e.step):
+                            self._save(mngr, e.epoch, e.step)
                         self.log(f"Rank {e.rank} died at epoch {e.epoch} "
                                  f"step {e.step}; emergency checkpoint "
                                  f"saved")
@@ -1722,9 +2024,16 @@ class Trainer:
                 start_step = 0
                 self.log(f"Training time after {epoch + 1} epoch is "
                          f"{time.time() - t0}")
+                if self.telemetry.enabled:
+                    self.telemetry.gauge("epoch_time_s", time.time() - t0,
+                                         epoch=epoch)
+                    self._emit_device_gauges(epoch)
+                    emit_memory_gauges(self.telemetry, self.device,
+                                       epoch=epoch)
                 self.test_model()
                 if mngr is not None:
-                    self._save(mngr, epoch)
+                    with self.telemetry.span("checkpoint_save", epoch=epoch):
+                        self._save(mngr, epoch)
                     if self._nf_policy == "restore":
                         self._snapshot_rollback()
                 if self._preempt_guard is not None and \

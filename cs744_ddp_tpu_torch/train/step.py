@@ -462,6 +462,12 @@ class GraphStep:
         self.device = device
         self.graph: Optional[torch.cuda.CUDAGraph] = None
 
+    def prepare(self) -> None:
+        """Warm up and capture now, if not done yet (on the card; the CPU
+        runs the step eagerly and has nothing to capture)."""
+        if self.device.type == "cuda" and self.graph is None:
+            self._capture()
+
     def _capture(self) -> None:
         tensors = list(self.state())
         counts = self._collectives()
@@ -478,17 +484,22 @@ class GraphStep:
         # capture runs; that is no capture error of this thread's.
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             self.fn()
-        self.collectives = self._collectives() - counts
+        after = self._collectives()
+        self.collectives = tuple(a - b for a, b in zip(after, counts))
         self._rewind(counts)
         self.graph = graph
 
-    def _collectives(self) -> Counter:
-        return Counter() if self.group is None \
-            else Counter(self.group.total_counts)
+    def _collectives(self) -> Tuple[Counter, Counter]:
+        """The group's totals: (collectives by kind, their result bytes)."""
+        if self.group is None:
+            return Counter(), Counter()
+        return (Counter(self.group.total_counts),
+                Counter(self.group.total_bytes))
 
-    def _rewind(self, total: Counter) -> None:
+    def _rewind(self, total: Tuple[Counter, Counter]) -> None:
         if self.group is not None:
-            self.group.total_counts = Counter(total)
+            self.group.total_counts = Counter(total[0])
+            self.group.total_bytes = Counter(total[1])
             self.group.reset_step()
 
     def __call__(self) -> None:
@@ -499,7 +510,7 @@ class GraphStep:
             self._capture()
         self.graph.replay()
         if self.group is not None:
-            self.group.add_replayed(self.collectives)
+            self.group.add_replayed(*self.collectives)
 
 
 class _Window:
@@ -556,6 +567,14 @@ class _Window:
         self.pos.fill_(0)
         for _ in range(w):
             self.step()
+
+
+class WindowColumns(NamedTuple):
+    """A drained window, one entry per step (``TrainWindow.columns``)."""
+    loss: np.ndarray
+    ok: Optional[np.ndarray]            # the guard's flags; None: off
+    grad_sqnorm: Optional[np.ndarray]   # the ring's column; None: no ring
+    steps: np.ndarray                   # absolute batch indices
 
 
 class TrainWindow(_Window):
@@ -620,28 +639,32 @@ class TrainWindow(_Window):
         self.ring.writes += w
         return self.ring.buf
 
-    def columns(self, fetched, start: int, w: int):
-        """(losses, oks) of the window of ``w`` steps from batch
-        ``start``, from the host copy of what ``__call__`` returned: the
-        guard's flags (1.0 finite, 0.0 not), None when it is off."""
+    def columns(self, fetched, start: int, w: int) -> WindowColumns:
+        """The window of ``w`` steps from batch ``start``, per step, from
+        the host copy of what ``__call__`` returned: the losses, the
+        guard's flags (1.0 finite, 0.0 not; None when it is off), the
+        ring's ``grad_sqnorm`` column (None without the ring) and the
+        steps' absolute batch indices (the ring's markers).  Nothing more
+        is fetched: the rows are in ``fetched``."""
+        steps = np.arange(start, start + w)
         if self.ring is None:
             if self.oks is None:
-                return fetched, None
-            return fetched[0], fetched[1]
-        loss, _, ok, steps = ringbuf.split_columns(
+                return WindowColumns(fetched, None, None, steps)
+            return WindowColumns(fetched[0], fetched[1], None, steps)
+        loss, gsq, ok, marked = ringbuf.split_columns(
             ringbuf.drain_rows(fetched, self.ring.writes, w))
-        if not np.array_equal(steps, np.arange(start, start + w)):
+        if not np.array_equal(marked, steps):
             raise RuntimeError(f"the ring holds the rows of batches "
-                               f"{steps.tolist()}, not of the window's "
+                               f"{marked.tolist()}, not of the window's "
                                f"{start}..{start + w - 1}")
-        return loss, ok if self.guarded else None
+        return WindowColumns(loss, ok if self.guarded else None, gsq, marked)
 
     def losses_of(self, fetched, start: int, w: int):
         """The losses of the window of ``w`` steps from batch ``start``, in
         step order, from the host copy of what ``__call__`` returned.  The
         ring's markers must be the window's batch indices: a step that did
         not run on the device leaves a row out."""
-        return self.columns(fetched, start, w)[0]
+        return self.columns(fetched, start, w).loss
 
 
 class FwdWindow(_Window):
