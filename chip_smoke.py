@@ -178,11 +178,32 @@ Phases, in order; any failure exits non-zero:
                bnpool kernels, as many runs of each as the kernels counted
                on the device in that epoch (5 x (3 warm-up steps + 60
                replays));
- 11. report  — the ``kernels`` JSON line (each kernel in f32, with the
+ 11. serve   — the serving engine (``serve/``), VGG-11 at full width,
+               seed-0 weights, buckets {1, 8, 32, 128, 256}, f32 and bf16:
+               the ladder's capture time per rung (the cold start: a CUDA
+               graph has no serialized form) and its peak
+               ``max_memory_allocated``; in every bucket a request's rows
+               bitwise the same alone and with batchmates before or after
+               it at every fill; against the eager forward at the exact
+               size n in {1, 3, 8, 20, 100, 200} (f32 rtol/atol 1e-4,
+               bf16 1e-2; which n are bitwise is printed); against the
+               same weights on the CPU (``logits_vs_cpu``'s bounds,
+               ``correct`` equal; an unlabeled request gives loss 0 and
+               correct 0); two bucket-256 dispatches in flight bitwise the
+               serial ones, a third issue waiting on the first slot's
+               fence, and no synchronizing call on the dispatch path
+               (sync-debug "error"); recorded: each bucket's median
+               ``infer_counts`` and images/s and the graph replay alone
+               (CUDA events), bucket 256 two in flight against serial,
+               ``run_demo`` at 20 and 2000 rps (400 requests); then the
+               CLI ``--serve-demo --telemetry-out D`` on the card, its
+               last line and the serving gauges of its run directory; and
+               no bnpool kernel run over the whole phase;
+ 12. report  — the ``kernels`` JSON line (each kernel in f32, with the
                main path's runs, and in bf16, with the VGG-11 bf16 path's;
-               ``launches_by_path`` also holds the host and elastic paths'
-               runs), the card's name and power limit, and as the last
-               line ``{"ok": true, "device": {...}}``.
+               ``launches_by_path`` also holds the host, elastic and serve
+               paths' runs), the card's name and power limit, and as the
+               last line ``{"ok": true, "device": {...}}``.
 
 ``--time-only`` runs phases 1 and 3 and stops.  ``--root DIR`` times the
 kernels of the checkout at DIR instead (for example the parent commit,
@@ -2182,6 +2203,305 @@ def phase_telemetry(card_line):
     return paths
 
 
+SERVE_BUCKETS = (1, 8, 32, 128, 256)
+SERVE_DIRECT_N = (1, 3, 8, 20, 100, 200)
+SERVE_CPU_N = (1, 20, 100)
+SERVE_TIMING_REPS = 30           # dispatches a bucket, median
+SERVE_REPLAY_REPS = 20           # graph replays a bucket, CUDA events
+SERVE_PIPE_REPS = 40             # bucket-256 dispatches, serial and two deep
+SERVE_DEMO_REQUESTS = 400
+SERVE_DEMO_LOADS = (20.0, 2000.0)
+SERVE_CLI_REQUESTS = 100
+# The serving forward against an eager forward at the exact size
+# (tests/test_torch_port_precision.py's bounds against the reference).
+SERVE_RTOL = {"f32": 1e-4, "bf16": 1e-2}
+
+
+def serve_requests(pool, rng, n):
+    """``n`` images (and labels) drawn from ``pool``."""
+    idx = rng.integers(0, len(pool.images), size=n)
+    return pool.images[idx], pool.labels[idx]
+
+
+def serve_invariance(engine, prec, pool, rng):
+    """In every bucket, the rows of a request of the bucket's smallest
+    fill, alone (with pad rows), are bitwise the same with other requests
+    before or after it, at every fill of the bucket.  Returns the number
+    of dispatches compared."""
+    prev, compared = 0, 0
+    for b in engine.buckets:
+        k = prev + 1
+        x, _ = serve_requests(pool, rng, k)
+        alone = engine.infer(x, precision=prec)
+        for m in range(k + 1, b + 1):
+            y, _ = serve_requests(pool, rng, m - k)
+            first = engine.infer(np.concatenate([x, y]), precision=prec)
+            last = engine.infer(np.concatenate([y, x]), precision=prec)
+            check(np.array_equal(first[:k], alone)
+                  and np.array_equal(last[m - k:], alone),
+                  f"serve {prec} bucket {b}: a request of {k} rows changes "
+                  f"with {m - k} batchmates")
+            compared += 2
+        prev = b
+    return compared
+
+
+def serve_direct(engine, prec, pool, rng):
+    """Against the eager forward at the exact size n; which n are
+    bitwise."""
+    fwd = engine._forward[prec]
+    rtol = SERVE_RTOL[prec]
+    bitwise, worst = [], 0.0
+    for n in SERVE_DIRECT_N:
+        x, y = serve_requests(pool, rng, n)
+        logits, loss, correct = engine.infer_counts(x, y, precision=prec)
+        want = fwd(torch.from_numpy(x).cuda(),
+                   torch.from_numpy(y.astype(np.int64)).cuda())
+        want_logits = want[0].cpu().numpy()
+        check(logits.shape == (n, 10) and np.isfinite(logits).all(),
+              f"serve {prec} n={n}: logits {logits.shape}")
+        np.testing.assert_allclose(logits, want_logits, rtol=rtol, atol=rtol)
+        np.testing.assert_allclose(loss, float(want[1]), rtol=rtol)
+        worst = max(worst, float(np.abs(logits - want_logits).max()))
+        if np.array_equal(logits, want_logits):
+            bitwise.append(n)
+    return bitwise, worst
+
+
+def serve_vs_cpu(engine, cpu_engine, prec, pool, rng):
+    """The card's logits against the same weights on the CPU, to
+    ``logits_vs_cpu``'s bounds; ``correct`` equal.  Returns the largest
+    difference and, in bf16, the CPU's own bf16-vs-f32 distance."""
+    worst, gauge_max = 0.0, 0.0
+    for n in SERVE_CPU_N:
+        x, y = serve_requests(pool, rng, n)
+        got, loss, correct = engine.infer_counts(x, y, precision=prec)
+        want, want_loss, want_correct = cpu_engine.infer_counts(
+            x, y, precision=prec)
+        diff = float(np.abs(got - want).max())
+        if prec == "f32":
+            np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+        else:
+            gauge = float(np.abs(want - cpu_engine.infer(x)).max())
+            check(diff <= 2 * gauge + 1e-3,
+                  f"serve bf16 n={n}: the card is {diff} from the CPU, whose "
+                  f"bf16 is {gauge} from its f32")
+            gauge_max = max(gauge_max, gauge)
+        check(correct == want_correct,
+              f"serve {prec} n={n}: correct {correct} on the card, "
+              f"{want_correct} on the CPU")
+        worst = max(worst, diff)
+    x, _ = serve_requests(pool, rng, 5)
+    _, loss, correct = engine.infer_counts(x, precision=prec)
+    check(loss == 0.0 and correct == 0,
+          f"serve {prec}: an unlabeled request gives loss {loss}, correct "
+          f"{correct}")
+    return worst, gauge_max
+
+
+def serve_pipeline(engine, pool, rng):
+    """Two bucket-256 dispatches in flight give the serial bits; a third
+    issue waits on the first slot's fence.  Under sync-debug "error": the
+    dispatch path makes no synchronizing call."""
+    b = engine.max_batch
+    batches = [serve_requests(pool, rng, b) for _ in range(3)]
+    serial = [engine.infer_counts(x, y) for x, y in batches]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h = [engine.infer_counts_async(x, y) for x, y in batches[:2]]
+        two = [engine.complete(hd)[:3] for hd in h]
+        h = [engine.infer_counts_async(x, y) for x, y in batches]
+        harvested = h[0].result is not None and h[1].result is None
+        three = [engine.complete(hd)[:3] for hd in h]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for label, got in (("two in flight", two), ("three issued", three)):
+        for (gl, gs, gc), (wl, ws, wc) in zip(got, serial):
+            check(np.array_equal(gl, wl) and gs == ws and gc == wc,
+                  f"serve: {label} differ from the serial dispatches")
+    check(harvested, "serve: a third issue with two in flight did not wait "
+          "on the first slot's fence")
+
+
+def serve_times(engine, prec, pool, rng):
+    """Per bucket: the median wall time of ``infer_counts`` (stage,
+    replay, fetch) and the graph replay alone by CUDA events."""
+    rows = {}
+    for b in engine.buckets:
+        x, y = serve_requests(pool, rng, b)
+        for _ in range(3):
+            engine.infer_counts(x, y, precision=prec)
+        walls = []
+        for _ in range(SERVE_TIMING_REPS):
+            t0 = time.perf_counter()
+            engine.infer_counts(x, y, precision=prec)
+            walls.append(time.perf_counter() - t0)
+        run = engine._rung(b, prec, engine._slots[0])
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with torch.cuda.stream(engine._stream):
+            run()
+            start.record()
+            for _ in range(SERVE_REPLAY_REPS):
+                run()
+            end.record()
+        end.synchronize()
+        ms = 1e3 * statistics.median(walls)
+        rows[b] = (ms, start.elapsed_time(end) / SERVE_REPLAY_REPS)
+    return rows
+
+
+def serve_pipe_times(engine, pool, rng):
+    """Bucket-256 dispatches, serial against two in flight, in turns
+    (serial, pipelined, pipelined, serial): ms a dispatch of each."""
+    b = engine.max_batch
+    batches = [serve_requests(pool, rng, b) for _ in range(4)]
+
+    def serial():
+        for i in range(SERVE_PIPE_REPS):
+            engine.infer_counts(*batches[i % 4])
+
+    def piped():
+        prev = engine.infer_counts_async(*batches[0])
+        for i in range(1, SERVE_PIPE_REPS):
+            nxt = engine.infer_counts_async(*batches[i % 4])
+            engine.complete(prev)
+            prev = nxt
+        engine.complete(prev)
+
+    out = {"serial": [], "two in flight": []}
+    for name, fn in (("serial", serial), ("two in flight", piped),
+                     ("two in flight", piped), ("serial", serial)):
+        t0 = time.perf_counter()
+        fn()
+        out[name].append(1e3 * (time.perf_counter() - t0) / SERVE_PIPE_REPS)
+    return out
+
+
+def phase_serve(card_line):
+    """The serving engine on the card; see the module docstring.  Returns
+    each kernel variant's runs over the phase (all 0)."""
+    from cs744_ddp_tpu_torch.obs import percentile, read_run
+    from cs744_ddp_tpu_torch.ops import bnpool
+    from cs744_ddp_tpu_torch.serve import InferenceEngine, demo
+
+    t_phase = time.perf_counter()
+    runs_before = bnpool.executed_counts()
+    pool = demo.request_pool()
+    rng = np.random.default_rng(11)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    engine = InferenceEngine("vgg11", buckets=SERVE_BUCKETS,
+                             precisions=("f32", "bf16"), seed=0)
+    report = engine.startup()
+    torch.cuda.synchronize()
+    ladder_mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    check(report["backend"] == "cuda" and not report["warm"]
+          and all(v["source"] == "capture"
+                  for v in report["per_bucket"].values()),
+          f"serve startup report {report}")
+    per = ", ".join(f"{k} {v['seconds']:.3f}"
+                    for k, v in report["per_bucket"].items())
+    print(f"[serve] ladder vgg11 buckets {SERVE_BUCKETS} f32+bf16, 2 "
+          f"pipeline slots ({2 * len(report['per_bucket'])} graphs): "
+          f"startup {report['startup_s']:.3f} s (capture s a rung, both "
+          f"slots: {per}); peak max_memory_allocated "
+          f"{ladder_mib:.1f} MiB above the {base / 2 ** 20:.1f} MiB held "
+          f"before  [{card_line}]")
+    cpu_engine = InferenceEngine("vgg11", buckets=SERVE_BUCKETS,
+                                 precisions=("f32", "bf16"), seed=0,
+                                 device="cpu")
+    for prec in ("f32", "bf16"):
+        compared = serve_invariance(engine, prec, pool, rng)
+        print(f"[serve] {prec} batchmate invariance: in every bucket a "
+              f"request's rows bitwise the same alone and with batchmates "
+              f"before or after it at every fill ({compared} dispatches)  "
+              f"ok")
+        bitwise, worst = serve_direct(engine, prec, pool, rng)
+        print(f"[serve] {prec} against the eager forward at the exact size "
+              f"n in {SERVE_DIRECT_N} (rtol/atol {SERVE_RTOL[prec]}): max "
+              f"|diff| {worst:.3e}; bitwise at n = {bitwise}, not at "
+              f"{[n for n in SERVE_DIRECT_N if n not in bitwise]}  ok")
+        worst, gauge = serve_vs_cpu(engine, cpu_engine, prec, pool, rng)
+        bound = ("rtol/atol 1e-3" if prec == "f32" else
+                 f"2x the CPU's bf16-vs-f32 {gauge:.3e} + 1e-3")
+        print(f"[serve] {prec} against the CPU, same weights, n in "
+              f"{SERVE_CPU_N} ({bound}): max |diff| {worst:.3e}, correct "
+              f"equal; an unlabeled request gives loss 0, correct 0  ok")
+    del cpu_engine
+    serve_pipeline(engine, pool, rng)
+    print("[serve] two bucket-256 dispatches in flight (infer_counts_async "
+          "x2, complete x2) bitwise the serial ones; a third issue waited "
+          "on the first slot's fence; no synchronizing call under "
+          "sync-debug \"error\"  ok")
+    for prec in ("f32", "bf16"):
+        rows = serve_times(engine, prec, pool, rng)
+        for b, (ms, replay_ms) in rows.items():
+            print(f"[serve time] {prec} bucket {b}: infer_counts median "
+                  f"{ms:.4f} ms ({b / ms * 1e3:.1f} images/s), graph "
+                  f"replay alone {replay_ms:.4f} ms (CUDA events, "
+                  f"{SERVE_REPLAY_REPS} replays)  [{card_line}]")
+    pipe = serve_pipe_times(engine, pool, rng)
+    print(f"[serve time] f32 bucket {engine.max_batch}, "
+          f"{SERVE_PIPE_REPS} dispatches in turns: serial "
+          f"{pipe['serial']} ms a dispatch, two in flight "
+          f"{pipe['two in flight']} ms a dispatch  [{card_line}]")
+    for rps in SERVE_DEMO_LOADS:
+        st = demo.run_demo(engine, n_requests=SERVE_DEMO_REQUESTS,
+                           offered_rps=rps, seed=0)
+        check(st["completed"] + st["rejected"] == SERVE_DEMO_REQUESTS
+              and st["completed"] > 0,
+              f"serve demo at {rps:g} rps: {st}")
+        lat = st["latency_ms"]
+        print(f"[serve demo] f32 {SERVE_DEMO_REQUESTS} requests at "
+              f"{rps:g} rps offered: p50 {lat['p50']} ms, p95 "
+              f"{lat['p95']} ms, p99 {lat['p99']} ms; achieved "
+              f"{st['achieved_rps']} rps, {st['images_per_sec']} images/s, "
+              f"rejected {st['rejected']}, driver_lag_ms_max "
+              f"{st['driver_lag_ms_max']}  [{card_line}]")
+    del engine
+    with tempfile.TemporaryDirectory() as tmp:
+        out = run_cli(["--serve-demo", "--serve-requests",
+                       str(SERVE_CLI_REQUESTS), "--telemetry-out", tmp],
+                      "serve cli", timeout=300)
+        last = json.loads(out.strip().splitlines()[-1])
+        st = last["demo"]["20rps"]
+        check(set(last) == {"startup", "demo"}
+              and last["startup"]["backend"] == "cuda"
+              and st["completed"] + st["rejected"] == SERVE_CLI_REQUESTS,
+              f"serve cli: last line {last}")
+        # What tools/telemetry_report.py's "== serving ==" section renders
+        # (the tool imports the reference package, which this script does
+        # not; tests/test_torch_port_serve.py renders through it).
+        manifest, events, summary = read_run(tmp)
+        lat = {}
+        depth = 0
+        for e in events:
+            if e["kind"] == "gauge" and e["name"] == "serve_latency_ms":
+                lat.setdefault(e["bucket"], []).append(e["value"])
+            depth += e["kind"] == "gauge" and e["name"] == "queue_depth"
+        check(manifest["mode"] == "serve" and summary is not None
+              and depth > 0 and sum(map(len, lat.values()))
+              == st["completed"],
+              f"serve cli: run directory {manifest}, {len(events)} events")
+        print(f"[serve] cli --serve-demo --telemetry-out (the card, "
+              f"{SERVE_CLI_REQUESTS} requests at 20 rps): last line parses, "
+              f"startup {last['startup']['startup_s']} s, p99 "
+              f"{st['latency_ms']['p99']} ms; the run directory's serving "
+              f"gauges: latency by bucket "
+              + ", ".join(f"{b} x{len(v)} p50 {percentile(v, 50):.3f} ms"
+                          for b, v in sorted(lat.items()))
+              + f", {depth} queue_depth samples  ok")
+    runs = bnpool.executed_counts()
+    diff = {k: runs[k] - runs_before[k] for k in runs}
+    check(not any(diff.values()),
+          f"serve: the bnpool kernels ran {diff} times")
+    print(f"[serve] bnpool runs over the phase {diff}; phase serve: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"serve": diff}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--time-only", action="store_true",
@@ -2226,6 +2546,7 @@ def main(argv=None) -> int:
     by_path.update(phase_host(card_line))
     by_path.update(phase_elastic(card_line))
     by_path.update(phase_telemetry(card_line))
+    by_path.update(phase_serve(card_line))
 
     replaces = {"bnpool_sums": "cs744_ddp_tpu/ops/bnpool_pallas.py:147",
                 "bnpool_dx": "cs744_ddp_tpu/ops/bnpool_pallas.py:184"}
@@ -2262,7 +2583,8 @@ def main(argv=None) -> int:
           f"and tail, {HOST_STEPS} steps, and a captured {HOST_TIME_STEPS}-"
           f"step bf16 epoch; elastic: {5 * MICROSHARDS} runs a step, "
           f"{ELASTIC_STEPS} replays and the virtual worlds' "
-          f"{BITWISE_STEPS} eager steps; window: 3 warm-up steps and graph "
+          f"{BITWISE_STEPS} eager steps; serve: the serving phase, which "
+          f"runs none; window: 3 warm-up steps and graph "
           f"replays, per-step: eager); the bf16 max_abs_err of dx is over "
           f"the "
           f"elements "

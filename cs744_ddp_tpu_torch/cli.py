@@ -21,6 +21,10 @@ GPU, with the reference training script's print schedule.
     # the run's telemetry, and a torch.profiler trace of its first epoch:
     python -m cs744_ddp_tpu_torch.cli --telemetry-out run --profile-dir prof
     python tools/telemetry_report.py run
+    # serve instead of training: a seeded open-loop request trace through
+    # the micro-batcher and a ladder of captured CUDA graphs:
+    python -m cs744_ddp_tpu_torch.cli --serve-demo --serve-load 20 \
+        --serve-load 2000 --telemetry-out run
 
 Each epoch is trained in 20-step windows, on the card as replays of one
 captured CUDA graph of the step, with one device-to-host fetch per window
@@ -66,6 +70,15 @@ generation's rank 0 appends to the same directory and this process writes
 the summary over all of them.  ``--profile-dir DIR`` traces the first
 trained epoch with ``torch.profiler`` into ``DIR/trace_epoch<E>_rank0.json``
 (a Chrome trace).
+
+``--serve-demo`` serves instead of training (``serve/``): it captures one
+CUDA graph per batch bucket of ``--serve-buckets`` and pipeline slot for
+``--model`` (seed-initialized from ``--serve-seed``), replays the seeded
+synthetic request trace at each ``--serve-load`` through the
+micro-batcher, and prints one JSON line, ``{"startup": ..., "demo":
+{"<load>rps": ...}}``; under ``--telemetry-out`` the run directory holds
+the serving spans and gauges, which ``tools/telemetry_report.py`` renders
+under ``== serving ==``.
 """
 
 from __future__ import annotations
@@ -244,6 +257,37 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "--num-devices): checkpointed progress from any "
                         "previous world is re-planned onto M under the "
                         "--elastic protocol")
+    sv = p.add_argument_group(
+        "serving (serve/)",
+        "single-GPU inference: a ladder of captured CUDA graphs over batch "
+        "buckets + micro-batching; --serve-demo replays a seeded open-loop "
+        "request trace and prints the stats sheet as one JSON line instead "
+        "of training")
+    sv.add_argument("--serve-demo", action="store_true",
+                    help="serve mode: capture the rung ladder for --model, "
+                         "replay the seeded synthetic request trace at each "
+                         "--serve-load, print startup + latency/throughput "
+                         "JSON")
+    sv.add_argument("--serve-buckets", default="1,8,32,128,256",
+                    help="comma list of batch buckets for the ladder")
+    sv.add_argument("--serve-precision", default="f32",
+                    choices=["f32", "bf16"])
+    sv.add_argument("--serve-requests", type=int, default=200,
+                    help="requests per offered-load replay")
+    sv.add_argument("--serve-load", action="append", type=float,
+                    default=None, metavar="RPS",
+                    help="offered load in requests/sec (repeatable; "
+                         "default one replay at 20 rps)")
+    sv.add_argument("--serve-max-wait-ms", type=float, default=5.0,
+                    help="micro-batcher deadline: max time the oldest "
+                         "queued request waits before dispatch")
+    sv.add_argument("--serve-cache-dir", default=None,
+                    help="refused: a CUDA graph has no serialized form, so "
+                         "the port keeps no warm-start executable cache "
+                         "(each start captures the ladder)")
+    sv.add_argument("--serve-seed", type=int, default=0,
+                    help="seed for the synthetic request trace AND the "
+                         "demo model init")
     return p.parse_args(argv)
 
 
@@ -455,8 +499,45 @@ def elastic_main(args: argparse.Namespace) -> dict:
     return report
 
 
+def serve_main(args: argparse.Namespace, telemetry) -> None:
+    """--serve-demo: capture the ladder, replay the seeded trace at each
+    offered load, print ONE JSON line (startup report + per-load stats)."""
+    from .serve import InferenceEngine, demo
+
+    buckets = demo.parse_buckets(args.serve_buckets)
+    engine = InferenceEngine(
+        args.model, buckets=buckets, precisions=(args.serve_precision,),
+        seed=args.serve_seed, telemetry=telemetry, device=args.device)
+    telemetry.write_manifest({
+        "mode": "serve", "model": args.model, "buckets": list(buckets),
+        "precision": args.serve_precision,
+        "max_wait_ms": args.serve_max_wait_ms,
+        "requests": args.serve_requests, "seed": args.serve_seed,
+    })
+    startup = engine.startup()
+    stats = {}
+    for rps in args.serve_load or [20.0]:
+        stats[f"{rps:g}rps"] = demo.run_demo(
+            engine, n_requests=args.serve_requests, offered_rps=rps,
+            seed=args.serve_seed, max_wait_ms=args.serve_max_wait_ms,
+            precision=args.serve_precision)
+    print(json.dumps({"startup": startup, "demo": stats}))
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
+    if args.serve_demo:
+        if args.serve_cache_dir is not None:
+            raise SystemExit("--serve-cache-dir: a CUDA graph has no "
+                             "serialized form, so the port keeps no "
+                             "warm-start executable cache")
+        telemetry = (Telemetry(args.telemetry_out)
+                     if args.telemetry_out is not None else NULL)
+        try:
+            serve_main(args, telemetry)
+        finally:
+            telemetry.finalize()
+        return
     if args.require_real_data and not cifar10.has_real_data(args.data_dir):
         raise SystemExit(
             f"--require-real-data: no CIFAR-10 pickle batches under "
