@@ -199,11 +199,54 @@ Phases, in order; any failure exits non-zero:
                CLI ``--serve-demo --telemetry-out D`` on the card, its
                last line and the serving gauges of its run directory; and
                no bnpool kernel run over the whole phase;
- 12. report  — the ``kernels`` JSON line (each kernel in f32, with the
+ 12. serve_tier — the serving tier (``serve/``: scheduler, replicas,
+               router, socket front-end): two VGG-11 f32 ``EngineReplica``s
+               at full width, seed-0 weights, buckets {1, 8, 32, 128,
+               256}, replica i on card ``i % count`` (both on ``cuda:0``
+               on one card), recording into an in-memory ``Telemetry``,
+               each ladder captured before any worker starts (capture
+               seconds and peak ``max_memory_allocated`` printed), a few
+               dispatches of every bucket to warm each replica's service
+               model; then behind the router and a ``ServingFrontend`` on
+               localhost a ``FrontendClient`` replays the seeded
+               ``synthetic_load_trace`` (400 requests, ``DEFAULT_TIERS``)
+               under ``torch.profiler`` (``utils/profile_serve_tier.py::
+               run_load``) at 200 rps with the pipelined workers under
+               sync-debug "error" (no synchronizing call on the dispatch
+               path), at 2000 rps, and the same 2000-rps trace with the
+               serial workers: every request exactly one reply, none an
+               error; each ok or late reply's logits bitwise its serving
+               replica's serial ``infer_counts`` of the request padded to
+               the bucket that served it (the replica and bucket read from
+               the ``serve_service_ms`` records), and within rtol/atol
+               1e-4 of the request alone (how many bitwise is printed: the
+               bits depend on the bucket); the two 2000-rps runs bitwise
+               equal wherever a request rode in the same bucket, which at
+               least a quarter of the requests must; recorded per load:
+               client round-trip p50, p95 and p99 by tier, attainment,
+               ok/late/shed/overload counts, achieved rps and images/s,
+               the driver's lag, the router's routed and failovers, the
+               device's busy share by card (the union of the kernels'
+               intervals over the wall), the replicas' host busy share
+               (their service clock over the wall), the CPU share of each
+               group of threads, and the dispatches: by replica and
+               bucket, images a dispatch, the median host time of a
+               staging.  Then chaos
+               through the router: ``dispatch_fault`` (errors only for its
+               batch, the rest bitwise serial), ``slow_replica`` (tier-0
+               requests of 75 ms queued behind the stall shed or late,
+               with reasons), ``replica_death`` (every request ok on the
+               survivor, each future resolved once, the dead engine's
+               in-flight dispatch fenced); then the CLI
+               ``--serve-frontend --serve-replicas 2 --telemetry-out D``
+               on the card, its last line and run directory; and no
+               bnpool kernel run over the whole phase;
+ 13. report  — the ``kernels`` JSON line (each kernel in f32, with the
                main path's runs, and in bf16, with the VGG-11 bf16 path's;
-               ``launches_by_path`` also holds the host, elastic and serve
-               paths' runs), the card's name and power limit, and as the
-               last line ``{"ok": true, "device": {...}}``.
+               ``launches_by_path`` also holds the host, elastic, serve
+               and serve_tier paths' runs), the card's name and power
+               limit, and as the last line ``{"ok": true, "device":
+               {...}}``.
 
 ``--time-only`` runs phases 1 and 3 and stops.  ``--root DIR`` times the
 kernels of the checkout at DIR instead (for example the parent commit,
@@ -2502,6 +2545,307 @@ def phase_serve(card_line):
     return {"serve": diff}
 
 
+SERVE_TIER_MODEL = "vgg11"
+SERVE_TIER_REPLICAS = 2
+SERVE_TIER_REQUESTS = 400
+SERVE_TIER_RTOL = 1e-4          # a reply against its replica's serial dispatch
+SERVE_TIER_WARM = 3             # dispatches a bucket a replica, before timing
+SERVE_TIER_CHAOS = 24           # requests of the fault and failover runs
+SERVE_TIER_CLI_REQUESTS = 100
+
+
+def serve_tier_load(replicas, rps, pool, tel, card_line, label,
+                    sync_debug=False):
+    """One open-loop replay of the seeded tiered trace at ``rps`` through
+    the router and the socket front-end, by a ``FrontendClient``, under
+    ``torch.profiler`` (``profile_serve_tier.run_load``); checks that every
+    request got one reply and none an error, prints the load's line and
+    returns the recorder's entries and each trace's (replica, bucket)."""
+    from cs744_ddp_tpu_torch.serve import demo
+    from cs744_ddp_tpu_torch.utils import profile_serve_tier as pst
+
+    sizes = tuple(s for s in demo.SIZE_CHOICES
+                  if s <= replicas[0].engine.max_batch)
+    trace = demo.synthetic_load_trace(SERVE_TIER_REQUESTS, offered_rps=rps,
+                                      seed=0, size_choices=sizes)
+    out = pst.run_load(replicas, trace, pool=pool, seed=0, telemetry=tel,
+                       sync_debug=sync_debug)
+    st, sent = out["stats"], out["sent"]
+    check(st["replies"] == SERVE_TIER_REQUESTS and st["unresolved"] == 0
+          and all("reply" in e for e in sent)
+          and st["unique_traces"] == st["traced"]
+          and all(e["reply"]["trace"] in out["served"] for e in sent
+                  if e["reply"]["status"] in ("ok", "late")),
+          f"serve_tier {label}: not every request got one reply: {st}")
+    check(not any(e["reply"]["status"] == "error" for e in sent),
+          f"serve_tier {label}: error replies "
+          f"{[e['reply'] for e in sent if e['reply']['status'] == 'error'][:3]}")
+    print(f"[serve_tier load] {label}, {len(replicas)} replica(s): "
+          f"{pst.describe(out, SERVE_BUCKETS)}  [{card_line}]")
+    return sent, out["served"]
+
+
+def serve_tier_bits(replicas, sent, served, label):
+    """Each ok or late reply's logits against its serving replica's serial
+    ``infer_counts`` of that request alone, within SERVE_TIER_RTOL (which
+    of them are bitwise is counted: the bits depend on the bucket), and
+    bitwise the serial dispatch of the request padded to the bucket that
+    served it (a request's rows do not depend on their batchmates).  The
+    workers are stopped.  Returns ``{index: (bucket, logits)}`` and the
+    count bitwise the request alone."""
+    got, alone_bitwise = {}, 0
+    for i, e in enumerate(sent):
+        rep = e["reply"]
+        if rep["status"] not in ("ok", "late"):
+            continue
+        index, bucket = served[rep["trace"]]
+        engine = replicas[index].engine
+        images = e["images"]
+        want = engine.infer_counts(images)[0]
+        check(rep["logits"].shape == want.shape
+              and np.isfinite(rep["logits"]).all(),
+              f"serve_tier {label}: request {i} logits "
+              f"{rep['logits'].shape}")
+        np.testing.assert_allclose(rep["logits"], want, rtol=SERVE_TIER_RTOL,
+                                   atol=SERVE_TIER_RTOL)
+        alone_bitwise += np.array_equal(rep["logits"], want)
+        pad = np.zeros((bucket - len(images),) + images.shape[1:], np.uint8)
+        rung = engine.infer_counts(np.concatenate([images, pad]))[0]
+        check(np.array_equal(rep["logits"], rung[:len(images)]),
+              f"serve_tier {label}: request {i} ({len(images)} images) "
+              f"differs from its bucket-{bucket} rung's serial dispatch")
+        got[i] = (bucket, rep["logits"])
+    return got, alone_bitwise
+
+
+def _once_futures(reqs):
+    """Each request's Future replaced by one that counts its resolutions."""
+    from concurrent.futures import Future
+
+    class Once(Future):
+        sets = 0
+
+        def set_result(self, result):
+            self.sets += 1
+            super().set_result(result)
+    for r in reqs:
+        r.future = Once()
+    return reqs
+
+
+def serve_tier_chaos(replicas, pool, rng, card_line):
+    """``dispatch_fault``, ``slow_replica`` and then ``replica_death``
+    (which leaves replica 0 dead), each at a dispatch a few past the
+    replica's count so far, through the router."""
+    from cs744_ddp_tpu_torch.ft import ChaosPlan
+    from cs744_ddp_tpu_torch.serve import ReplicaRouter, make_request
+
+    r0 = replicas[0]
+    max_b = r0.engine.max_batch
+
+    def burst(router, sizes):
+        """Requests placed 2 ms apart, so that each replica dispatches
+        several times; at most 960 images in all, so that the survivor's
+        1024-image queue takes every failover."""
+        reqs = _once_futures([make_request(serve_requests(pool, rng, n)[0],
+                                           max_batch=max_b)
+                              for n in sizes])
+        for r in reqs:
+            router._place(r)
+            time.sleep(0.002)
+        return reqs, [r.future.result(120) for r in reqs]
+
+    sizes = [int(n) for n in rng.choice(
+        [n for n in (1, 3, 8, 40) if n <= max_b], SERVE_TIER_CHAOS)]
+    # dispatch_fault: that dispatch's requests get errors, the rest the
+    # serial bits.
+    at = r0.scheduler._dispatches + 1
+    r0.chaos = ChaosPlan.parse([f"dispatch_fault:{at}:0"])
+    with ReplicaRouter(replicas) as router:
+        reqs, replies = burst(router, sizes)
+    check(("dispatch_fault", at) in r0.chaos.fired,
+          f"serve_tier: dispatch_fault:{at}:0 did not fire")
+    errs = [(r, p) for r, p in zip(reqs, replies) if p.status == "error"]
+    check(errs and all(p.replica == 0 and f"dispatch {at} " in p.reason
+                       for _, p in errs)
+          and sum(r.n for r, _ in errs) <= max_b
+          and all(p.status == "ok" for p in replies if p.status != "error")
+          and all(r.future.sets == 1 for r in reqs),
+          f"serve_tier dispatch_fault: replies "
+          f"{[(p.status, p.replica, p.reason) for p in replies]}")
+    bitwise = 0
+    for r, p in zip(reqs, replies):
+        if p.status == "ok":
+            want = replicas[p.replica].engine.infer_counts(r.images)[0]
+            np.testing.assert_allclose(p.logits, want, rtol=SERVE_TIER_RTOL,
+                                       atol=SERVE_TIER_RTOL)
+            bitwise += np.array_equal(p.logits, want)
+    print(f"[serve_tier chaos] dispatch_fault:{at}:0: {len(errs)} "
+          f"request(s) of that dispatch ({sum(r.n for r, _ in errs)} "
+          f"images) got error replies ({errs[0][1].reason!r}); the other "
+          f"{len(reqs) - len(errs)} ok, within rtol/atol {SERVE_TIER_RTOL} "
+          f"of their replica's serial dispatch ({bitwise} bitwise); each "
+          f"future resolved once  ok")
+    # slow_replica: tier-0 requests queued behind the stall shed or late.
+    at = r0.scheduler._dispatches
+    r0.chaos = ChaosPlan.parse([f"slow_replica:{at}:0"])
+    with r0:
+        first = r0.scheduler.submit(serve_requests(pool, rng, max_b)[0])
+        t_end = time.time() + 60
+        while ("slow_replica", at) not in r0.chaos.fired:
+            check(time.time() < t_end, "serve_tier: slow_replica never fired")
+            time.sleep(0.001)
+        tight = [r0.scheduler.submit(serve_requests(pool, rng, 1)[0],
+                                     tier=0, slo_ms=75.0) for _ in range(8)]
+        p0 = first.result(120)
+        ps = [f.result(120) for f in tight]
+    check(p0.status == "ok" and p0.service_ms >= 1e3 * r0.slow_stall_s
+          and all(p.status in ("shed", "late") for p in ps)
+          and all(p.reason for p in ps if p.status == "shed"),
+          f"serve_tier slow_replica: {p0.status} {p0.service_ms} ms; "
+          f"{[(p.status, p.reason) for p in ps]}")
+    print(f"[serve_tier chaos] slow_replica:{at}:0 ({r0.slow_stall_s} s "
+          f"stall): the stalled dispatch served in {p0.service_ms} ms; 8 "
+          f"tier-0 requests (75 ms SLO) queued behind it: "
+          f"{[(p.status, p.reason) for p in ps]}  ok")
+    # replica_death: failover without a lost or doubled reply; the dead
+    # worker's in-flight dispatch fenced before it ends.
+    at = r0.scheduler._dispatches + 1
+    r0.chaos = ChaosPlan.parse([f"replica_death:{at}:0"])
+    with ReplicaRouter(replicas) as router:
+        reqs, replies = burst(router, sizes)
+        alive = [rep.alive for rep in replicas]
+    stats = router.stats()
+    check(("replica_death", at) in r0.chaos.fired and alive == [False, True]
+          and stats["failovers"] >= 1
+          and all(p.status == "ok" for p in replies)
+          and all(r.future.sets == 1 for r in reqs)
+          and all(slot.handle is None for slot in r0.engine._slots),
+          f"serve_tier replica_death: alive {alive}, {stats}, "
+          f"{[(p.status, p.replica) for p in replies]}")
+    for r, p in zip(reqs, replies):
+        np.testing.assert_allclose(
+            p.logits, replicas[p.replica].engine.infer_counts(r.images)[0],
+            rtol=SERVE_TIER_RTOL, atol=SERVE_TIER_RTOL)
+    print(f"[serve_tier chaos] replica_death:{at}:0: replica 0 dead, "
+          f"{stats['failovers']} failovers, all {len(reqs)} requests ok "
+          f"(served by replica {sorted({p.replica for p in replies})}), "
+          f"each future resolved once, the dead engine's slots all read "
+          f"back (its in-flight dispatch fenced)  ok")
+
+
+def phase_serve_tier(card_line):
+    """The serving tier on the card; see the module docstring.  Returns
+    each kernel variant's runs over the phase (all 0)."""
+    from cs744_ddp_tpu_torch.obs import Telemetry, read_run
+    from cs744_ddp_tpu_torch.ops import bnpool
+    from cs744_ddp_tpu_torch.serve import EngineReplica, demo
+    from cs744_ddp_tpu_torch.utils import profile_serve_tier as pst
+
+    t_phase = time.perf_counter()
+    runs_before = bnpool.executed_counts()
+    pool = demo.request_pool()
+    rng = np.random.default_rng(12)
+    devices = pst.devices(SERVE_TIER_REPLICAS)
+    tel = Telemetry()
+    gc.collect()
+    torch.cuda.synchronize()
+    base = {}
+    for d in set(devices):
+        torch.cuda.reset_peak_memory_stats(d)
+        base[d] = torch.cuda.memory_allocated(d)
+    replicas = [EngineReplica(i, SERVE_TIER_MODEL, device=d,
+                              buckets=SERVE_BUCKETS, seed=0, telemetry=tel)
+                for i, d in enumerate(devices)]
+    reports = [rep.startup() for rep in replicas]
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    peak = {str(d): (torch.cuda.max_memory_allocated(d) - base[d]) / 2 ** 20
+            for d in base}
+    for rep, report in zip(replicas, reports):
+        check(report["backend"] == "cuda"
+              and all(v["source"] == "capture"
+                      for v in report["per_bucket"].values()),
+              f"serve_tier replica {rep.index} startup {report}")
+        per = ", ".join(f"{k} {v['seconds']:.3f}"
+                        for k, v in report["per_bucket"].items())
+        print(f"[serve_tier] replica {rep.index} on {rep.engine.device}: "
+              f"{SERVE_TIER_MODEL} f32 ladder {SERVE_BUCKETS} x 2 slots captured in "
+              f"{report['startup_s']:.3f} s (s a rung: {per})  [{card_line}]")
+    print(f"[serve_tier] peak max_memory_allocated above what was held, by "
+          f"card, both ladders: "
+          f"{ {k: round(v, 1) for k, v in peak.items()} } MiB  [{card_line}]")
+    pst.warm(replicas, pool, rng, SERVE_TIER_WARM)
+    runs = {}
+    for label, rps, pipeline, sync_debug in (
+            ("200 rps pipeline on (sync-debug \"error\")", 200.0, True,
+             True),
+            ("2000 rps pipeline on", 2000.0, True, False),
+            ("2000 rps pipeline off", 2000.0, False, False)):
+        for rep in replicas:
+            rep.scheduler.pipeline = pipeline
+        sent, served = serve_tier_load(replicas, rps, pool, tel, card_line,
+                                       label, sync_debug=sync_debug)
+        got, bitwise = serve_tier_bits(replicas, sent, served, label)
+        runs[label] = got
+        print(f"[serve_tier] {label}: {len(got)} ok or late replies, each "
+              f"bitwise its replica's serial dispatch of the request padded "
+              f"to the bucket that served it, and within rtol/atol "
+              f"{SERVE_TIER_RTOL} of the request alone ({bitwise} bitwise)"
+              + ("; no synchronizing call on the dispatch path (sync-debug "
+                 "\"error\", pipelined workers)" if sync_debug else "")
+              + "  ok")
+    on, off = runs["2000 rps pipeline on"], runs["2000 rps pipeline off"]
+    both = sorted(set(on) & set(off))
+    same_bucket = [i for i in both if on[i][0] == off[i][0]]
+    check(4 * len(same_bucket) >= len(both) > 0,
+          f"serve_tier: only {len(same_bucket)} of the {len(both)} requests "
+          f"served in both 2000-rps runs rode in the same bucket")
+    check(all(np.array_equal(on[i][1], off[i][1]) for i in same_bucket),
+          "serve_tier: pipeline on and off give other bits in one bucket")
+    equal = sum(np.array_equal(on[i][1], off[i][1]) for i in both)
+    print(f"[serve_tier] pipeline on and off over the same 2000-rps trace: "
+          f"of the {len(both)} requests served in both runs, the "
+          f"{len(same_bucket)} that rode in the same bucket bitwise equal; "
+          f"{equal} of {len(both)} bitwise equal in all  ok")
+    for rep in replicas:
+        rep.scheduler.pipeline = True
+    serve_tier_chaos(replicas, pool, rng, card_line)
+    del replicas
+    gc.collect()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = run_cli(["--serve-frontend", "--serve-replicas",
+                       str(SERVE_TIER_REPLICAS), "--serve-requests",
+                       str(SERVE_TIER_CLI_REQUESTS), "--serve-load", "200",
+                       "--telemetry-out", tmp], "serve_tier cli",
+                      timeout=300)
+        last = json.loads(out.strip().splitlines()[-1])
+        st = last["load"]["200rps"]
+        manifest, events, summary = read_run(tmp)
+        check(set(last) == {"address", "startup", "router", "load"}
+              and all(r["backend"] == "cuda"
+                      for r in last["startup"].values())
+              and st["replies"] == SERVE_TIER_CLI_REQUESTS
+              and st["unresolved"] == 0
+              and manifest["mode"] == "serve-frontend"
+              and manifest["replicas"] == SERVE_TIER_REPLICAS
+              and summary is not None,
+              f"serve_tier cli: last line {last}; manifest {manifest}")
+        print(f"[serve_tier] cli --serve-frontend --serve-replicas "
+              f"{SERVE_TIER_REPLICAS} --telemetry-out (the card, devices "
+              f"{manifest['devices']}): last line parses, "
+              f"{SERVE_TIER_CLI_REQUESTS} replies at 200 rps, attainment "
+              f"{st['attainment']}, routed {last['router']['routed']}; "
+              f"{len(events)} events  ok")
+    runs = bnpool.executed_counts()
+    diff = {k: runs[k] - runs_before[k] for k in runs}
+    check(not any(diff.values()),
+          f"serve_tier: the bnpool kernels ran {diff} times")
+    print(f"[serve_tier] bnpool runs over the phase {diff}; phase "
+          f"serve_tier: {time.perf_counter() - t_phase:.1f} s")
+    return {"serve_tier": diff}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--time-only", action="store_true",
@@ -2547,6 +2891,7 @@ def main(argv=None) -> int:
     by_path.update(phase_elastic(card_line))
     by_path.update(phase_telemetry(card_line))
     by_path.update(phase_serve(card_line))
+    by_path.update(phase_serve_tier(card_line))
 
     replaces = {"bnpool_sums": "cs744_ddp_tpu/ops/bnpool_pallas.py:147",
                 "bnpool_dx": "cs744_ddp_tpu/ops/bnpool_pallas.py:184"}
@@ -2583,8 +2928,8 @@ def main(argv=None) -> int:
           f"and tail, {HOST_STEPS} steps, and a captured {HOST_TIME_STEPS}-"
           f"step bf16 epoch; elastic: {5 * MICROSHARDS} runs a step, "
           f"{ELASTIC_STEPS} replays and the virtual worlds' "
-          f"{BITWISE_STEPS} eager steps; serve: the serving phase, which "
-          f"runs none; window: 3 warm-up steps and graph "
+          f"{BITWISE_STEPS} eager steps; serve and serve_tier: the serving "
+          f"phases, which run none; window: 3 warm-up steps and graph "
           f"replays, per-step: eager); the bf16 max_abs_err of dx is over "
           f"the "
           f"elements "

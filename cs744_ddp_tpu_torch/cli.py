@@ -25,6 +25,10 @@ GPU, with the reference training script's print schedule.
     # the micro-batcher and a ladder of captured CUDA graphs:
     python -m cs744_ddp_tpu_torch.cli --serve-demo --serve-load 20 \
         --serve-load 2000 --telemetry-out run
+    # the serving tier: two replicas behind the router and the socket
+    # front-end, the seeded tiered trace replayed over a real socket:
+    python -m cs744_ddp_tpu_torch.cli --serve-frontend --serve-replicas 2 \
+        --serve-load 200 --serve-load 2000 --telemetry-out run
 
 Each epoch is trained in 20-step windows, on the card as replays of one
 captured CUDA graph of the step, with one device-to-host fetch per window
@@ -79,6 +83,21 @@ micro-batcher, and prints one JSON line, ``{"startup": ..., "demo":
 {"<load>rps": ...}}``; under ``--telemetry-out`` the run directory holds
 the serving spans and gauges, which ``tools/telemetry_report.py`` renders
 under ``== serving ==``.
+
+``--serve-frontend`` serves through the serving tier instead:
+``--serve-replicas`` engine replicas (replica i on GPU ``i % count``, two
+of them sharing a card when there are fewer cards; the CPU under
+``--device cpu``), each capturing its ladder before any serves, behind the
+least-loaded router and the socket front-end on ``--serve-port``; the
+seeded tiered trace is replayed over a real socket at each
+``--serve-load``, and one JSON line ``{"address", "startup", "router",
+"load"}`` is printed.  Each replica's continuous-batching SLO scheduler
+keeps two dispatches in flight (``--serve-pipeline off``: one) and sheds
+requests that would miss their deadline (``--serve-shed off``: serves
+them late).  ``--chaos`` takes the replica sites there (``replica_death``,
+``slow_replica``, ``dispatch_fault``: ``SITE:dispatch:replica``).
+``--serve-trace-client DIR`` records the load client's trace spans, which
+``tools/trace_waterfall.py`` merges with the server's ``--telemetry-out``.
 """
 
 from __future__ import annotations
@@ -218,7 +237,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "(the third field is the target RANK, not a seed "
                         "— SITE:step:rank): rank_death, slow_rank; "
                         "coordinator_loss fires on recovery progress "
-                        "(requires --elastic)")
+                        "(requires --elastic); under --serve-frontend the "
+                        "replica sites replica_death, slow_replica and "
+                        "dispatch_fault (SITE:dispatch:replica), and no "
+                        "other")
     p.add_argument("--ft-put-timeout", type=float, default=30.0,
                    metavar="SECONDS",
                    help="watchdog deadline on each staged chunk device_put")
@@ -288,6 +310,40 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     sv.add_argument("--serve-seed", type=int, default=0,
                     help="seed for the synthetic request trace AND the "
                          "demo model init")
+    sv.add_argument("--serve-frontend", action="store_true",
+                    help="serve mode: start --serve-replicas device-pinned "
+                         "engine replicas behind the least-loaded router "
+                         "and the socket front-end, replay the seeded "
+                         "TIERED trace over a real socket at each "
+                         "--serve-load, print goodput/SLO-attainment JSON")
+    sv.add_argument("--serve-replicas", type=int, default=1, metavar="N",
+                    help="engine replicas, one per GPU (round-robin when N "
+                         "exceeds the GPU count)")
+    sv.add_argument("--serve-slo-ms", type=float, default=None,
+                    metavar="MS",
+                    help="flatten the trace to ONE tier with this SLO "
+                         "(default: the 3-tier 75/200/600 ms mixture)")
+    sv.add_argument("--serve-port", type=int, default=0, metavar="PORT",
+                    help="front-end TCP port (0 = ephemeral; the bound "
+                         "address is in the output JSON — python -m "
+                         "cs744_ddp_tpu_torch.serve.load replays against "
+                         "it)")
+    sv.add_argument("--serve-pipeline", default="on", choices=["on", "off"],
+                    help="double-buffered dispatch pipeline in each "
+                         "replica's scheduler: stage + issue batch N+1 "
+                         "while batch N computes (off = the serial "
+                         "dispatch-fence-reply loop; only with "
+                         "--serve-frontend)")
+    sv.add_argument("--serve-shed", default="on", choices=["on", "off"],
+                    help="deadline-aware load shedding in the scheduler "
+                         "(off = serve everything, late replies included "
+                         "— the no-shed ablation)")
+    sv.add_argument("--serve-trace-client", default=None, metavar="DIR",
+                    help="write the in-process load client's distributed-"
+                         "trace spans (events.jsonl) to DIR — a second "
+                         "stream for tools/trace_waterfall.py; server "
+                         "spans ride --telemetry-out (only with "
+                         "--serve-frontend)")
     return p.parse_args(argv)
 
 
@@ -295,8 +351,9 @@ def ft_config_from_args(args: argparse.Namespace) -> Optional[FTConfig]:
     """FTConfig when any fault-tolerance flag is set, else None (the
     Trainer's ft=None path: no guard built, staging unsupervised).
     Refuses, as the reference does, NaN injection without a guard and a
-    chaos preemption without a checkpoint directory, and any site the
-    Trainer would not fire (a staging site needs --host-augment)."""
+    chaos preemption without a checkpoint directory, and any site the run
+    would not fire (a staging site needs --host-augment; a replica site
+    fires under --serve-frontend, and only the replica sites do)."""
     if (args.nonfinite == "off" and not args.chaos
             and args.ft_put_timeout == 30.0 and args.ft_put_retries == 3
             and args.ft_stall_timeout == 120.0
@@ -304,7 +361,8 @@ def ft_config_from_args(args: argparse.Namespace) -> Optional[FTConfig]:
         return None
     try:
         plan = ChaosPlan.parse(args.chaos)
-        check_sites(plan, args.host_augment, args.elastic != "off")
+        check_sites(plan, args.host_augment, args.elastic != "off",
+                    serving=args.serve_frontend)
     except ValueError as e:
         raise SystemExit(str(e)) from None
     if plan.steps("nonfinite_grad") and args.nonfinite == "off":
@@ -524,9 +582,89 @@ def serve_main(args: argparse.Namespace, telemetry) -> None:
     print(json.dumps({"startup": startup, "demo": stats}))
 
 
+def serve_frontend_main(args: argparse.Namespace, telemetry) -> dict:
+    """--serve-frontend: the replicated serving tier end to end — N
+    device-pinned engine replicas behind the least-loaded router and the
+    socket front-end; replay the seeded tiered trace over a REAL socket at
+    each offered load, print ONE JSON line (address, startup, router and
+    per-load goodput/attainment stats) and return it."""
+    from .ft import NULL_CHAOS
+    from .serve import demo
+    from .serve.frontend import FrontendClient, ServingFrontend
+    from .serve.replica import EngineReplica
+    from .serve.router import ReplicaRouter
+
+    ft = ft_config_from_args(args)
+    chaos = ft.chaos if ft is not None else NULL_CHAOS
+    buckets = demo.parse_buckets(args.serve_buckets)
+    shed = args.serve_shed == "on"
+    pipeline = args.serve_pipeline == "on"
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        count = torch.cuda.device_count()
+        devices = [torch.device("cuda", i % count)
+                   for i in range(max(1, args.serve_replicas))]
+    else:
+        devices = [device] * max(1, args.serve_replicas)
+    client_tel = None
+    if args.serve_trace_client is not None:
+        client_tel = Telemetry(args.serve_trace_client)
+        client_tel.write_manifest({"mode": "serve-frontend-client"})
+    replicas = [
+        EngineReplica(i, args.model, device=dev, buckets=buckets,
+                      precision=args.serve_precision, seed=args.serve_seed,
+                      telemetry=telemetry, chaos=chaos, shed=shed,
+                      pipeline=pipeline)
+        for i, dev in enumerate(devices)]
+    telemetry.write_manifest({
+        "mode": "serve-frontend", "model": args.model,
+        "buckets": list(buckets), "precision": args.serve_precision,
+        "replicas": len(replicas),
+        "devices": [str(d) for d in devices], "shed": shed,
+        "pipeline": pipeline, "slo_ms": args.serve_slo_ms,
+        "requests": args.serve_requests, "seed": args.serve_seed,
+        "chaos": chaos.spec() if chaos.enabled else [],
+    })
+    # Every ladder is captured before any worker starts: no capture runs
+    # while another thread replays.
+    startup = {f"replica{r.index}": r.startup() for r in replicas}
+    tiers = demo.DEFAULT_TIERS if args.serve_slo_ms is None \
+        else ((0, 1, float(args.serve_slo_ms)),)
+    router = ReplicaRouter(replicas, telemetry=telemetry)
+    stats = {}
+    sizes = tuple(s for s in demo.SIZE_CHOICES if s <= buckets[-1])
+    address = None
+    # Leaving the router stops every replica, which waits for every
+    # fence its worker owes (a dead replica's orphaned dispatches too).
+    with router:
+        try:
+            with ServingFrontend(router, port=args.serve_port,
+                                 telemetry=telemetry) as frontend:
+                address = frontend.address
+                pool = demo.request_pool()
+                for rps in args.serve_load or [20.0]:
+                    trace = demo.synthetic_load_trace(
+                        args.serve_requests, offered_rps=rps,
+                        seed=args.serve_seed, size_choices=sizes,
+                        tiers=tiers)
+                    with FrontendClient(address,
+                                        telemetry=client_tel) as client:
+                        stats[f"{rps:g}rps"] = demo.replay_load(
+                            client, trace, pool=pool, seed=args.serve_seed)
+        finally:
+            if client_tel is not None:
+                client_tel.finalize()
+    out = {"address": list(address), "startup": startup,
+           "router": router.stats(), "load": stats}
+    if telemetry.enabled:
+        telemetry.update_manifest({"router": out["router"]})
+    print(json.dumps(out))
+    return out
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
-    if args.serve_demo:
+    if args.serve_demo or args.serve_frontend:
         if args.serve_cache_dir is not None:
             raise SystemExit("--serve-cache-dir: a CUDA graph has no "
                              "serialized form, so the port keeps no "
@@ -534,7 +672,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         telemetry = (Telemetry(args.telemetry_out)
                      if args.telemetry_out is not None else NULL)
         try:
-            serve_main(args, telemetry)
+            if args.serve_frontend:
+                serve_frontend_main(args, telemetry)
+            else:
+                serve_main(args, telemetry)
         finally:
             telemetry.finalize()
         return

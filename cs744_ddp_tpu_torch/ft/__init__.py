@@ -16,9 +16,12 @@ Trainer without ``host_augment``, where the reference would never fire it.
 The rank sites (``rank_death``, ``slow_rank``) fire at the Trainer's
 window boundaries (``Trainer._rank_boundary``) and ``coordinator_loss`` in
 the elastic coordinator (``elastic/coordinator.py``), so it is accepted
-only under ``elastic``.  The replica and publish sites need the serving
-and publishing layers, which are not ported yet: the Trainer refuses a
-plan that names them (``check_sites``).
+only under ``elastic``.  The replica sites ``replica_death``,
+``slow_replica`` and ``dispatch_fault`` fire in the serving tier's
+replicas (``serve/replica.py``, the CLI's ``--serve-frontend``), and only
+there: the Trainer refuses them.  ``swap_mid_batch`` and the publish sites
+need the publishing layer, which is not ported yet: every run refuses
+them (``check_sites``).
 """
 
 from __future__ import annotations
@@ -34,13 +37,16 @@ from .supervisor import (StagingStalled, Watchdog, batch_checksums,
 
 # The sites that fire on the host-augment staging pipeline only.
 STAGING_SITES = ("producer_crash", "put_delay", "put_fail", "corrupt_slot")
-# The sites the port fires: its Trainer, and the elastic coordinator
+# The sites the port's Trainer fires, and the elastic coordinator
 # (coordinator_loss).
 FIRED_SITES = STAGING_SITES + ("nonfinite_grad", "preempt") + RANK_SITES \
     + ("coordinator_loss",)
+# The sites the serving tier's replicas fire (--serve-frontend).
+SERVE_SITES = ("replica_death", "slow_replica", "dispatch_fault")
 # Every other site, by the ROADMAP queue 1 item that brings its layer.
-_LATER = dict.fromkeys(REPLICA_SITES + PUBLISH_SITES,
-                       "queue 1 item 5 (serving and publishing)")
+_LATER = dict.fromkeys(
+    [s for s in REPLICA_SITES + PUBLISH_SITES if s not in SERVE_SITES],
+    "queue 1 item 5c (publishing)")
 
 
 class FTConfig(NamedTuple):
@@ -81,17 +87,30 @@ class FTConfig(NamedTuple):
 
 
 def check_sites(chaos, host_augment: bool = False,
-                elastic: bool = False) -> None:
+                elastic: bool = False, serving: bool = False) -> None:
     """Refuse a plan that names a site the run would not fire: one the
-    port has not ported yet, a staging site without ``host_augment``, or
-    ``coordinator_loss`` without ``elastic`` (no coordinator runs).  Each
-    would be accepted and then never fire."""
+    port has not ported yet, a replica site in training or a training
+    site in serving (``serving``: the serving tier's replicas), a staging
+    site without ``host_augment``, or ``coordinator_loss`` without
+    ``elastic`` (no coordinator runs).  Each would be accepted and then
+    never fire."""
     for entry in chaos.spec():
         site = entry["site"]
-        if site not in FIRED_SITES:
+        if site in _LATER:
             raise ValueError(
                 f"chaos site {site!r} is not ported yet: it comes with "
-                f"ROADMAP {_LATER[site]}; the port fires {FIRED_SITES}")
+                f"ROADMAP {_LATER[site]}; the port fires {FIRED_SITES} in "
+                f"training and {SERVE_SITES} under --serve-frontend")
+        if serving:
+            if site not in SERVE_SITES:
+                raise ValueError(
+                    f"chaos site {site!r} fires in training only; the "
+                    f"serving tier (--serve-frontend) fires {SERVE_SITES}")
+            continue
+        if site in SERVE_SITES:
+            raise ValueError(
+                f"chaos site {site!r} fires in the serving tier's replicas "
+                f"only (--serve-frontend): no replica runs in training")
         if site in STAGING_SITES and not host_augment:
             raise ValueError(
                 f"chaos site {site!r} fires on the host-augment staging "
@@ -105,7 +124,8 @@ def check_sites(chaos, host_augment: bool = False,
 __all__ = [
     "FTConfig", "ChaosPlan", "ChaosError", "NullChaos", "NULL_CHAOS", "SITES",
     "PUBLISH_SITES", "RANK_SITES", "REPLICA_SITES", "RankDeathError",
-    "FIRED_SITES", "STAGING_SITES", "check_sites", "POLICIES",
+    "FIRED_SITES", "SERVE_SITES", "STAGING_SITES", "check_sites",
+    "POLICIES",
     "NonFiniteError", "PreemptedError", "PreemptionGuard", "StagingStalled",
     "Watchdog", "call_with_retry", "batch_checksums", "verify_checksums",
 ]

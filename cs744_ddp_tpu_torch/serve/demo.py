@@ -85,7 +85,7 @@ def synthetic_load_trace(n_requests: int, *, offered_rps: float, seed: int,
 def replay_load(client, trace, *, pool: Optional[cifar10.Split] = None,
                 seed: int = 0, drain_timeout_s: float = 120.0) -> dict:
     """Open-loop replay of a tiered load trace against a serving client
-    (the serving tier's clients, ROADMAP queue 1 item 5b — anything whose
+    (``LoopbackClient`` or ``FrontendClient`` — anything whose
     ``submit(images, tier=, slo_ms=)`` returns a Future of a reply dict).
 
     Every submitted request is awaited to a terminal reply — the

@@ -292,18 +292,24 @@ class InferenceEngine:
 
     def _capture(self, fn: Callable[[], None]) -> torch.cuda.CUDAGraph:
         """Warm ``fn`` up on a side stream (cuDNN's handles and workspaces
-        initialise lazily, which no capture may do), then capture it into
-        a graph on the shared pool.  A failure raises."""
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(self._stream)
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_ITERS):
+        initialise lazily, which no capture may do), then capture it on
+        that stream into a graph on the shared pool.  The engine's card is
+        the current device throughout and the capture stream is passed
+        explicitly: ``torch.cuda.graph``'s own default stream is made
+        once per process, on whichever card was current then, so an
+        engine on another card would capture onto a foreign stream.  A
+        failure raises."""
+        with torch.cuda.device(self.device):
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(self._stream)
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_ITERS):
+                    fn()
+            self._stream.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._pool, stream=side,
+                                  capture_error_mode="thread_local"):
                 fn()
-        self._stream.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool,
-                              capture_error_mode="thread_local"):
-            fn()
         return graph
 
     # -- dispatch -----------------------------------------------------------

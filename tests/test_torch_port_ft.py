@@ -125,16 +125,21 @@ def _narrow(log=None, **kw):
                                   if s not in ft.FIRED_SITES
                                   or s in ft.STAGING_SITES])
 def test_trainer_refuses_a_site_it_cannot_fire(site):
-    """A site of a layer not ported yet, and a staging site on a Trainer
-    without host_augment (tests/test_torch_port_host.py holds the staging
-    sites accepted with it)."""
+    """A site of a layer not ported yet, a replica site (it fires in the
+    serving tier's replicas only, tests/test_torch_port_frontend.py), and
+    a staging site on a Trainer without host_augment
+    (tests/test_torch_port_host.py holds the staging sites accepted with
+    it)."""
     plan = ChaosPlan.parse([f"{site}:3"])
-    why = "host_augment" if site in ft.STAGING_SITES else \
-        r"not ported yet.*queue 1 item"
+    if site in ft.STAGING_SITES:
+        why, cli_why = "host_augment", "host-augment"
+    elif site in ft.SERVE_SITES:
+        why = cli_why = "serving tier.*--serve-frontend"
+    else:
+        why, cli_why = r"not ported yet.*queue 1 item", "queue 1 item"
     with pytest.raises(ValueError, match=why):
         _narrow(ft=FTConfig(nonfinite="skip", chaos=plan))
-    with pytest.raises(SystemExit, match="host-augment"
-                       if site in ft.STAGING_SITES else "queue 1 item"):
+    with pytest.raises(SystemExit, match=cli_why):
         cli.ft_config_from_args(cli.parse_args(
             ["--nonfinite", "skip", "--chaos", f"{site}:3"]))
 
