@@ -241,11 +241,41 @@ Phases, in order; any failure exits non-zero:
                ``--serve-frontend --serve-replicas 2 --telemetry-out D``
                on the card, its last line and run directory; and no
                bnpool kernel run over the whole phase;
- 13. report  — the ``kernels`` JSON line (each kernel in f32, with the
+ 13. publish — train to serve (``publish/``): ``Trainer("vgg11",
+               "single", global_batch=256)`` at full width runs 2 epochs
+               of 40 windowed steps with ``run(publish_dir=)``, publishing
+               each epoch's weights as CCWB1 bundles v1 and v2: falling
+               finite losses, each bnpool kernel run 5 times a step on the
+               device (3 warm-up steps and 80 replays), each bundle
+               36,946,472 bytes in 50 leaves and bitwise the trainer's
+               serving leaves at its epoch, the publish wall time.  Then
+               two f32 ``EngineReplica``s on ``cuda:0`` behind the router
+               and the socket front-end, at seed-0 weights, install v1
+               through a ``WeightWatcher`` (50 ms poll); 400 requests of
+               one tier (10 s SLO) at 200 rps with no swap, then with a
+               version published 1 s into the replay, installed rolling
+               and then all at once: every request one reply, each ok;
+               each replica's dispatches on one version each, never an
+               older one than the last; each reply bitwise the serial
+               dispatch, padded to its bucket, of a third engine on the
+               card with the reply's version installed through
+               ``install_weights``, and within 1e-4 of the eager forward;
+               v1 and v2 answering differently; the same CUDA graphs and
+               weight addresses after the swaps; printed: p50 and p99
+               with and without a swap, the publish and the publish to
+               installed lag, ``swap_ms`` by replica.  The same at bf16
+               for one replica (bitwise its own serial dispatch, 1e-2 of
+               the bf16 eager forward).  Chaos on replica 0:
+               ``publish_stale`` skipped, ``publish_torn`` rejected with
+               the old version serving bitwise, ``swap_mid_batch`` (the
+               racing dispatch wholly on the old version, the next on
+               the new, the probe's time on the worker thread printed);
+               and no bnpool kernel run in the serving half;
+ 14. report  — the ``kernels`` JSON line (each kernel in f32, with the
                main path's runs, and in bf16, with the VGG-11 bf16 path's;
-               ``launches_by_path`` also holds the host, elastic, serve
-               and serve_tier paths' runs), the card's name and power
-               limit, and as the last line ``{"ok": true, "device":
+               ``launches_by_path`` also holds the host, elastic, serve,
+               serve_tier and publish paths' runs), the card's name and
+               power limit, and as the last line ``{"ok": true, "device":
                {...}}``.
 
 ``--time-only`` runs phases 1 and 3 and stops.  ``--root DIR`` times the
@@ -2846,6 +2876,390 @@ def phase_serve_tier(card_line):
     return {"serve_tier": diff}
 
 
+PUBLISH_STEPS = 40             # phase publish: steps an epoch, 2 windows
+PUBLISH_EPOCHS = 2
+PUBLISH_EVAL = 2
+PUBLISH_BYTES = 36946472        # VGG-11's 50 serving leaves, f32
+PUBLISH_REQUESTS = 400
+PUBLISH_RPS = 200.0
+PUBLISH_SLO_MS = 10000.0        # one tier: every request must come back ok
+PUBLISH_AT_S = 1.0              # into a replay, the mid-replay publish
+PUBLISH_POLL_S = 0.05           # the watcher's poll (the CLI's default)
+
+
+def _ladder(engine):
+    """What a recapture would change: each rung's CUDA graph and each
+    captured weight's address."""
+    return ({k: id(getattr(v, "__self__", v))
+             for k, v in engine._rungs.items()},
+            {k: v.data_ptr() for k, v in engine._weights.items()})
+
+
+def _to_card(sd, device):
+    return {k: v.to(device) for k, v in sd.items()}
+
+
+def publish_replay(replicas, pool, tel, label, publish=None):
+    """One open-loop replay of PUBLISH_REQUESTS requests of one tier
+    (PUBLISH_SLO_MS) at PUBLISH_RPS through the router and the socket
+    front-end; with ``publish`` (a callable returning the version it
+    published), called PUBLISH_AT_S into the replay on another thread.
+    Checks one reply a request, every one ok, and each dispatch of a
+    replica on one version, never an older one than the dispatch before
+    it.  Returns (sent, served, lag record or None, replay output)."""
+    import threading
+
+    from cs744_ddp_tpu_torch.serve import demo
+    from cs744_ddp_tpu_torch.utils import profile_serve_tier as pst
+
+    sizes = tuple(s for s in demo.SIZE_CHOICES
+                  if s <= replicas[0].engine.max_batch)
+    trace = demo.synthetic_load_trace(
+        PUBLISH_REQUESTS, offered_rps=PUBLISH_RPS, seed=0,
+        size_choices=sizes, tiers=((0, 1, PUBLISH_SLO_MS),))
+    lag = {}
+
+    def mid():
+        time.sleep(PUBLISH_AT_S)
+        lag.update(publish())
+
+    first = len(tel.records)
+    thread = threading.Thread(target=mid) if publish else None
+    if thread is not None:
+        thread.start()
+    try:
+        out = pst.run_load(replicas, trace, pool=pool, seed=0, telemetry=tel,
+                           profile=False)
+    finally:
+        if thread is not None:
+            thread.join()
+    st, sent = out["stats"], out["sent"]
+    check(st["replies"] == PUBLISH_REQUESTS and st["unresolved"] == 0
+          and st["unique_traces"] == st["traced"]
+          and all(e["reply"]["status"] == "ok" for e in sent)
+          and all(e["reply"]["trace"] in out["served"] for e in sent),
+          f"publish {label}: not every request got one ok reply: {st}; "
+          f"{sorted({e['reply']['status'] for e in sent})}")
+    version = {e["reply"]["trace"]: e["reply"]["model_version"] for e in sent}
+    last = {}
+    for r in tel.records[first:]:
+        if r.get("name") != "serve_service_ms":
+            continue
+        vs = {version[t] for t in r["traces"] if t in version}
+        check(len(vs) == 1 and min(vs) >= last.get(r["replica"], -1),
+              f"publish {label}: replica {r['replica']} dispatch of versions "
+              f"{vs} after version {last.get(r['replica'])}")
+        last[r["replica"]] = vs.pop()
+    return sent, out["served"], lag, out
+
+
+def publish_bits(sent, served, states, ref, label, precision="f32",
+                 engines=None):
+    """Each reply against what its tagged version computes: bitwise the
+    serial dispatch of the request padded to the bucket that served it, on
+    ``ref`` (or, with ``engines``, on the serving replica's own engine)
+    with that version installed through ``install_weights``, and within
+    SERVE_RTOL of ``ref``'s eager forward of the request alone.  The
+    workers are stopped.  Returns {version: replies} and the largest
+    difference from the eager forward."""
+    by_version = {}
+    for e in sent:
+        by_version.setdefault(e["reply"]["model_version"], []).append(e)
+    worst = 0.0
+    for v, entries in sorted(by_version.items()):
+        check(v in states, f"publish {label}: a reply of version {v}")
+        ref.install_weights(_to_card(states[v], ref.device), v)
+        for eng in (engines or {}).values():
+            eng.install_weights(_to_card(states[v], eng.device), v)
+        for e in entries:
+            rep, images = e["reply"], e["images"]
+            index, bucket = served[rep["trace"]]
+            eng = (engines or {}).get(index, ref)
+            pad = np.zeros((bucket - len(images),) + images.shape[1:],
+                           np.uint8)
+            rung = eng.infer_counts(np.concatenate([images, pad]),
+                                    precision=precision)[0]
+            check(np.array_equal(rep["logits"], rung[:len(images)]),
+                  f"publish {label}: a reply of version {v} ({len(images)} "
+                  f"images, bucket {bucket}) differs from that version's "
+                  f"serial dispatch")
+            want = ref._forward[precision](
+                torch.from_numpy(images).to(ref.device),
+                torch.full((len(images),), -1, dtype=torch.int64,
+                           device=ref.device))[0].cpu().numpy()
+            tol = SERVE_RTOL[precision]
+            np.testing.assert_allclose(rep["logits"], want, rtol=tol,
+                                       atol=tol)
+            worst = max(worst, float(np.abs(rep["logits"] - want).max()))
+    return {v: len(es) for v, es in by_version.items()}, worst
+
+
+def _latency(sent):
+    from cs744_ddp_tpu_torch.obs import percentile
+    ms = [1e3 * (e["t1"] - e["t0"]) for e in sent]
+    return percentile(ms, 50), percentile(ms, 99)
+
+
+def phase_publish(card_line):
+    """Train, publish and hot-swap on the card; see the module docstring.
+    Returns each kernel variant's runs over the phase."""
+    with tempfile.TemporaryDirectory(prefix="publish_smoke_") as tmp:
+        return _phase_publish(card_line, tmp)
+
+
+def _phase_publish(card_line, tmp):
+    from cs744_ddp_tpu_torch.ft import NULL_CHAOS, ChaosPlan
+    from cs744_ddp_tpu_torch.models import convert
+    from cs744_ddp_tpu_torch.obs import Telemetry
+    from cs744_ddp_tpu_torch.ops import bnpool
+    from cs744_ddp_tpu_torch.publish import (WeightPublisher, WeightWatcher,
+                                             read_bundle)
+    from cs744_ddp_tpu_torch.serve import EngineReplica, InferenceEngine, demo
+    from cs744_ddp_tpu_torch.train.loop import Trainer
+    from cs744_ddp_tpu_torch.train.step import WARMUP_ITERS
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda", 0)
+    runs_before = bnpool.executed_counts()
+    # -- 1. train and publish --------------------------------------------
+    train_dir = os.path.join(tmp, "train")
+    snaps, losses = [], []
+    tel_train = Telemetry()
+
+    def on_log(line):
+        if line.startswith("Published weights"):
+            # The state this publish read, copied for the checks below.
+            snaps.append({k: v.detach().cpu().clone() for k, v in
+                          trainer.state.model.state_dict().items()})
+            losses.append(list(trainer.last_epoch_timers.losses))
+            print(f"[publish] {line}  [{card_line}]")
+
+    trainer = Trainer("vgg11", "single", global_batch=BATCH, augment=True,
+                      limit_train_batches=PUBLISH_STEPS,
+                      limit_eval_batches=PUBLISH_EVAL, log=on_log,
+                      telemetry=tel_train)
+    trainer.run(PUBLISH_EPOCHS, publish_dir=train_dir)
+    torch.cuda.synchronize()
+    runs = bnpool.executed_counts()
+    train_runs = {k: runs[k] - runs_before[k] for k in runs}
+    want = variants("f32", 5 * (WARMUP_ITERS + PUBLISH_EPOCHS * PUBLISH_STEPS))
+    check(train_runs == want, f"publish: the training ran the bnpool kernels "
+          f"{train_runs} times on the device, want {want}")
+    check(len(snaps) == PUBLISH_EPOCHS, f"publish: {len(snaps)} publishes")
+    first, second = check_losses("publish epoch 1", losses[0], PUBLISH_STEPS)
+    check(all(math.isfinite(v) for v in losses[1])
+          and statistics.mean(losses[1]) < first,
+          f"publish: epoch 2 losses {losses[1]}")
+    walls = [r["dur_s"] for r in tel_train.records
+             if r.get("kind") == "span" and r.get("name") == "publish"]
+    for e, sd in enumerate(snaps, start=1):
+        man, leaves = read_bundle(os.path.join(train_dir, f"v{e:06d}.ccwb"))
+        want_leaves, treedef = convert.serving_leaves(sd)
+        nbytes = sum(int(r["nbytes"]) for r in man["leaves"])
+        check(man["version"] == e and man["treedef"] == treedef
+              and nbytes == PUBLISH_BYTES and len(leaves) == 50
+              and man["fingerprint"]["model"] == "vgg11"
+              and all(np.array_equal(a, b)
+                      for a, b in zip(leaves, want_leaves)),
+              f"publish: bundle v{e} ({nbytes} B) is not the trainer's "
+              f"serving leaves at epoch {e}")
+    print(f"[publish] vgg11 f32 single, batch {BATCH}, {PUBLISH_EPOCHS} "
+          f"epochs of {PUBLISH_STEPS} windowed steps, publishing each: "
+          f"losses {first:.4f} -> {second:.4f} (epoch 1), mean "
+          f"{statistics.mean(losses[1]):.4f} (epoch 2); bnpool runs on the "
+          f"device {train_runs} (5 a step: {WARMUP_ITERS} warm-up steps and "
+          f"{PUBLISH_EPOCHS * PUBLISH_STEPS} replays); bundles v1, v2 "
+          f"{PUBLISH_BYTES} B, 50 leaves, each bitwise the trainer's "
+          f"serving leaves at its epoch; publish wall "
+          f"{[round(1e3 * w, 3) for w in walls]} ms  ok  [{card_line}]")
+    del trainer
+    gc.collect()
+    states = {}
+    # -- 2. hot-swap under load ------------------------------------------
+    runs_serve = bnpool.executed_counts()
+    pool = demo.request_pool()
+    tel = Telemetry()
+    sdir = os.path.join(tmp, "serve")
+    pub = WeightPublisher(sdir, fingerprint={"model": "vgg11"})
+
+    def publish(sd):
+        rec = pub.publish(sd)
+        states[rec["version"]] = sd
+        return rec
+
+    replicas = [EngineReplica(i, "vgg11", device=device,
+                              buckets=SERVE_BUCKETS, seed=0, telemetry=tel)
+                for i in range(SERVE_TIER_REPLICAS)]
+    for rep in replicas:
+        rep.startup()
+    ref = InferenceEngine("vgg11", buckets=SERVE_BUCKETS, device=device)
+    ref.startup()
+    watcher = WeightWatcher(sdir, replicas, telemetry=tel,
+                            poll_interval_s=PUBLISH_POLL_S)
+    publish(snaps[0])
+    check(watcher.poll_once() == "installed"
+          and [r.engine.weights_version for r in replicas] == [1, 1],
+          "publish: v1 not installed")
+    ladders = [_ladder(r.engine) for r in replicas]
+    probe = pool.images[:8]
+    answers = {}
+    for v, sd in ((1, snaps[0]), (2, snaps[1])):
+        ref.install_weights(_to_card(sd, device), v)
+        answers[v] = ref.infer(probe)
+    check(not np.array_equal(answers[1], answers[2]),
+          "publish: v1 and v2 answer the same")
+    sent, served, _, out = publish_replay(replicas, pool, tel, "no swap")
+    check({e["reply"]["model_version"] for e in sent} == {1},
+          "publish: a reply not of v1 with no swap")
+    counts, worst = publish_bits(sent, served, states, ref, "no swap")
+    p50, p99 = _latency(sent)
+    print(f"[publish load] {PUBLISH_REQUESTS} requests at {PUBLISH_RPS:g} "
+          f"rps, no swap: p50 {p50:.3f} ms p99 {p99:.3f} ms (client round "
+          f"trip); versions {counts}; each reply bitwise its version's "
+          f"serial dispatch, within {worst:.2e} of the eager forward  ok  "
+          f"[{card_line}]")
+    for mode, rolling, sd in (("rolling", True, snaps[1]),
+                              ("all-at-once", False, snaps[0])):
+        watcher.rolling = rolling
+        before = len(watcher.report()["swap_ms"])
+
+        def swap(sd=sd):
+            t0 = time.perf_counter()
+            rec = publish(sd)
+            t1 = time.perf_counter()
+            while watcher.installed_version < rec["version"]:
+                time.sleep(0.0002)
+            return {"version": rec["version"],
+                    "publish_ms": 1e3 * (t1 - t0),
+                    "lag_ms": 1e3 * (time.perf_counter() - t1)}
+
+        watcher.start()
+        try:
+            sent, served, lag, out = publish_replay(
+                replicas, pool, tel, f"swap {mode}", publish=swap)
+        finally:
+            watcher.stop()
+        versions = {e["reply"]["model_version"] for e in sent}
+        check(versions == {lag["version"] - 1, lag["version"]},
+              f"publish {mode}: reply versions {versions}")
+        counts, worst = publish_bits(sent, served, states, ref,
+                                     f"swap {mode}")
+        check([_ladder(r.engine) for r in replicas] == ladders,
+              f"publish {mode}: a rung or a weight's address changed")
+        swap_ms = watcher.report()["swap_ms"][before:]
+        p50, p99 = _latency(sent)
+        print(f"[publish load] {PUBLISH_REQUESTS} requests at "
+              f"{PUBLISH_RPS:g} rps, v{lag['version']} published "
+              f"{PUBLISH_AT_S:g} s in ({mode}): p50 {p50:.3f} ms p99 "
+              f"{p99:.3f} ms (client round trip); replies by version "
+              f"{counts}; publish {lag['publish_ms']:.3f} ms, publish to "
+              f"installed {lag['lag_ms']:.3f} ms (poll {PUBLISH_POLL_S} s); "
+              f"swap_ms by replica {[round(x, 3) for x in swap_ms]}; each "
+              f"reply bitwise its version's serial dispatch on a third "
+              f"engine, within {worst:.2e} of the eager forward; the same "
+              f"{len(ladders[0][0])} graphs and weight addresses  ok  "
+              f"[{card_line}]")
+    # -- bf16: one replica -----------------------------------------------
+    bdir = os.path.join(tmp, "bf16")
+    bpub = WeightPublisher(bdir, fingerprint={"model": "vgg11"})
+    rb = EngineReplica(0, "vgg11", device=device, buckets=SERVE_BUCKETS,
+                       precision="bf16", seed=0, telemetry=tel)
+    rb.startup()
+    bwatch = WeightWatcher(bdir, [rb], telemetry=tel,
+                           poll_interval_s=PUBLISH_POLL_S)
+    bstates = {1: snaps[0], 2: snaps[1]}
+    bpub.publish(snaps[0])
+    check(bwatch.poll_once() == "installed", "publish bf16: v1")
+    bladder = _ladder(rb.engine)
+
+    def bswap():
+        rec = bpub.publish(snaps[1])
+        while bwatch.installed_version < rec["version"]:
+            time.sleep(0.0002)
+        return {"version": rec["version"]}
+
+    bwatch.start()
+    try:
+        sent, served, _, _ = publish_replay([rb], pool, tel, "bf16 swap",
+                                            publish=bswap)
+    finally:
+        bwatch.stop()
+    counts, worst = publish_bits(sent, served, bstates, ref, "bf16 swap",
+                                 precision="bf16", engines={0: rb.engine})
+    check(set(counts) == {1, 2} and _ladder(rb.engine) == bladder,
+          f"publish bf16: versions {counts}, or a rung changed")
+    p50, p99 = _latency(sent)
+    print(f"[publish load] bf16, one replica, v2 published mid-replay: "
+          f"p50 {p50:.3f} ms p99 {p99:.3f} ms; replies by version {counts}; "
+          f"each bitwise its own serial dispatch at its version, within "
+          f"{worst:.2e} of the bf16 eager forward; the same graphs  ok  "
+          f"[{card_line}]")
+    del rb, bwatch
+    # -- 3. chaos, on replica 0 --------------------------------------------
+    r0 = replicas[0]
+    cdir = os.path.join(tmp, "chaos")
+    cpub = WeightPublisher(cdir, fingerprint={"model": "vgg11"},
+                           chaos=ChaosPlan.parse(["publish_stale:1",
+                                                  "publish_torn:2:7"]))
+    cwatch = WeightWatcher(cdir, [r0], telemetry=tel)
+    cpub.publish(snaps[1])
+    check(cwatch.poll_once() == "installed", "publish chaos: v1")
+    stale = cpub.publish(snaps[0])
+    check(stale["stale"] and stale["version"] == 1
+          and cwatch.poll_once() == "stale"
+          and r0.engine.weights_version == 1,
+          f"publish_stale: {stale}, {cwatch.report()}")
+    before = r0.engine.infer(probe)
+    torn = cpub.publish(snaps[0])
+    check(torn["torn"] and cwatch.poll_once() == "rejected"
+          and r0.engine.weights_version == 1
+          and np.array_equal(r0.engine.infer(probe), before)
+          and np.array_equal(before, answers[2]),
+          f"publish_torn: {torn}, {cwatch.report()}")
+    print(f"[publish chaos] publish_stale:1 skipped ({stale['file']}); "
+          f"publish_torn:2:7 rejected on crc; v1 keeps serving bitwise  ok")
+    cpub.publish(snaps[0])                                       # v3
+    at = r0.scheduler._dispatches + 1
+    plan = r0.chaos = ChaosPlan.parse([f"swap_mid_batch:{at}:0"])
+    probe_ms = []
+    inner = r0.swap_probe
+
+    def timed_probe():
+        t0 = time.perf_counter()
+        inner()
+        probe_ms.append(1e3 * (time.perf_counter() - t0))
+    r0.swap_probe = timed_probe
+    with r0:
+        replies = [r0.scheduler.submit(probe, slo_ms=None).result(120)
+                   for _ in range(4)]
+    r0.chaos = NULL_CHAOS
+    ref.install_weights(_to_card(snaps[0], device), 3)
+    check(("swap_mid_batch", at) in plan.fired
+          and [p.model_version for p in replies] == [1, 1, 3, 3]
+          and np.array_equal(replies[0].logits, replies[1].logits)
+          and np.array_equal(replies[1].logits, answers[2])
+          and np.array_equal(replies[2].logits, ref.infer(probe))
+          and len(probe_ms) == 1,
+          f"swap_mid_batch:{at}:0: versions "
+          f"{[p.model_version for p in replies]}, probe {probe_ms}")
+    print(f"[publish chaos] swap_mid_batch:{at}:0: the racing dispatch "
+          f"answered wholly on v1, the next on v3; the probe read, checked "
+          f"and staged v3 on the worker thread in {probe_ms[0]:.3f} ms: "
+          f"service {[p.service_ms for p in replies]} ms by dispatch (the "
+          f"second raced)  ok  [{card_line}]")
+    runs = bnpool.executed_counts()
+    serve_runs = {k: runs[k] - runs_serve[k] for k in runs}
+    check(not any(serve_runs.values()),
+          f"publish: the serving half ran the bnpool kernels {serve_runs}")
+    del replicas, ref, r0
+    gc.collect()
+    phase = {k: runs[k] - runs_before[k] for k in runs}
+    print(f"[publish] bnpool runs: training {train_runs}, serving "
+          f"{serve_runs}; phase publish: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"publish": phase}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--time-only", action="store_true",
@@ -2892,6 +3306,7 @@ def main(argv=None) -> int:
     by_path.update(phase_telemetry(card_line))
     by_path.update(phase_serve(card_line))
     by_path.update(phase_serve_tier(card_line))
+    by_path.update(phase_publish(card_line))
 
     replaces = {"bnpool_sums": "cs744_ddp_tpu/ops/bnpool_pallas.py:147",
                 "bnpool_dx": "cs744_ddp_tpu/ops/bnpool_pallas.py:184"}
@@ -2929,7 +3344,9 @@ def main(argv=None) -> int:
           f"step bf16 epoch; elastic: {5 * MICROSHARDS} runs a step, "
           f"{ELASTIC_STEPS} replays and the virtual worlds' "
           f"{BITWISE_STEPS} eager steps; serve and serve_tier: the serving "
-          f"phases, which run none; window: 3 warm-up steps and graph "
+          f"phases, which run none; publish: {PUBLISH_EPOCHS} windowed "
+          f"epochs of {PUBLISH_STEPS} steps, and serving that runs none; "
+          f"window: 3 warm-up steps and graph "
           f"replays, per-step: eager); the bf16 max_abs_err of dx is over "
           f"the "
           f"elements "

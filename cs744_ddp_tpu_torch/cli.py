@@ -29,6 +29,10 @@ GPU, with the reference training script's print schedule.
     # front-end, the seeded tiered trace replayed over a real socket:
     python -m cs744_ddp_tpu_torch.cli --serve-frontend --serve-replicas 2 \
         --serve-load 200 --serve-load 2000 --telemetry-out run
+    # train to serve: publish each epoch's weights; a serving process
+    # watching the directory hot-swaps each version between dispatches:
+    python -m cs744_ddp_tpu_torch.cli --epochs 3 --publish-dir pub
+    python -m cs744_ddp_tpu_torch.cli --serve-frontend --serve-publish-dir pub
 
 Each epoch is trained in 20-step windows, on the card as replays of one
 captured CUDA graph of the step, with one device-to-host fetch per window
@@ -98,6 +102,17 @@ them late).  ``--chaos`` takes the replica sites there (``replica_death``,
 ``slow_replica``, ``dispatch_fault``: ``SITE:dispatch:replica``).
 ``--serve-trace-client DIR`` records the load client's trace spans, which
 ``tools/trace_waterfall.py`` merges with the server's ``--telemetry-out``.
+
+``--publish-dir DIR`` publishes the serving half of the trained state
+(parameters and BN statistics) every ``--publish-every`` epochs as a
+versioned CCWB1 bundle (``publish/``; rank 0), in the reference's format
+and layout; ``--serve-frontend --serve-publish-dir DIR`` polls DIR every
+``--serve-publish-poll-ms`` and installs each new version into every
+replica between dispatches, by a copy into the tensors its CUDA graphs
+read: no recapture, and each reply names the version that computed it.
+The JSON line then holds ``"publish"``, the watcher's report.  The
+publish chaos sites (``publish_torn``, ``publish_stale``) need
+``--publish-dir``; ``swap_mid_batch`` needs ``--serve-publish-dir``.
 """
 
 from __future__ import annotations
@@ -213,6 +228,17 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "epoch and resume from the newest save; SIGTERM "
                         "or SIGINT saves mid-epoch at the next window "
                         "boundary and exits 0")
+    p.add_argument("--publish-dir", default=None,
+                   help="publish the serving weights (params + BN stats) "
+                        "as a versioned crc-checksummed bundle into this "
+                        "directory every --publish-every completed epochs; "
+                        "a serving process started with "
+                        "--serve-publish-dir on the same directory "
+                        "hot-swaps each version between dispatches with "
+                        "no recapture (publish/)")
+    p.add_argument("--publish-every", type=int, default=1, metavar="K",
+                   help="publish every K completed epochs (default 1); "
+                        "only meaningful with --publish-dir")
     p.add_argument("--deterministic", action="store_true",
                    help="deterministic cuDNN algorithms, so that a resumed "
                         "run is bitwise equal to an uninterrupted one on "
@@ -237,10 +263,19 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "(the third field is the target RANK, not a seed "
                         "— SITE:step:rank): rank_death, slow_rank; "
                         "coordinator_loss fires on recovery progress "
-                        "(requires --elastic); under --serve-frontend the "
-                        "replica sites replica_death, slow_replica and "
-                        "dispatch_fault (SITE:dispatch:replica), and no "
-                        "other")
+                        "(requires --elastic); publish-level sites (step "
+                        "counts the publisher's own publishes, third field "
+                        "is a payload seed): publish_torn (bundle "
+                        "corrupted after rename — rejected on crc, old "
+                        "version keeps serving), publish_stale "
+                        "(re-announces the previous version — skipped) "
+                        "(require --publish-dir); under --serve-frontend "
+                        "the replica sites replica_death, slow_replica, "
+                        "dispatch_fault and swap_mid_batch (a pending "
+                        "publish races a live dispatch: the racing "
+                        "dispatch is answered by the OLD weights, the "
+                        "next by the new; requires --serve-publish-dir) "
+                        "(SITE:dispatch:replica), and no other")
     p.add_argument("--ft-put-timeout", type=float, default=30.0,
                    metavar="SECONDS",
                    help="watchdog deadline on each staged chunk device_put")
@@ -338,6 +373,17 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="deadline-aware load shedding in the scheduler "
                          "(off = serve everything, late replies included "
                          "— the no-shed ablation)")
+    sv.add_argument("--serve-publish-dir", default=None, metavar="DIR",
+                    help="watch DIR for published weight bundles (a "
+                         "--publish-dir training run's output) and "
+                         "hot-swap every replica to each new version "
+                         "between dispatches — zero restarts, zero "
+                         "recaptures; replies carry the serving "
+                         "model_version (only with --serve-frontend)")
+    sv.add_argument("--serve-publish-poll-ms", type=float, default=50.0,
+                    metavar="MS",
+                    help="publish-directory poll interval for "
+                         "--serve-publish-dir (default 50 ms)")
     sv.add_argument("--serve-trace-client", default=None, metavar="DIR",
                     help="write the in-process load client's distributed-"
                          "trace spans (events.jsonl) to DIR — a second "
@@ -352,8 +398,9 @@ def ft_config_from_args(args: argparse.Namespace) -> Optional[FTConfig]:
     Trainer's ft=None path: no guard built, staging unsupervised).
     Refuses, as the reference does, NaN injection without a guard and a
     chaos preemption without a checkpoint directory, and any site the run
-    would not fire (a staging site needs --host-augment; a replica site
-    fires under --serve-frontend, and only the replica sites do)."""
+    would not fire (a staging site needs --host-augment, a publish site
+    --publish-dir; a replica site fires under --serve-frontend, and only
+    the replica sites do, swap_mid_batch with --serve-publish-dir)."""
     if (args.nonfinite == "off" and not args.chaos
             and args.ft_put_timeout == 30.0 and args.ft_put_retries == 3
             and args.ft_stall_timeout == 120.0
@@ -361,8 +408,10 @@ def ft_config_from_args(args: argparse.Namespace) -> Optional[FTConfig]:
         return None
     try:
         plan = ChaosPlan.parse(args.chaos)
+        publish = (args.serve_publish_dir if args.serve_frontend
+                   else args.publish_dir)
         check_sites(plan, args.host_augment, args.elastic != "off",
-                    serving=args.serve_frontend)
+                    serving=args.serve_frontend, publish=publish is not None)
     except ValueError as e:
         raise SystemExit(str(e)) from None
     if plan.steps("nonfinite_grad") and args.nonfinite == "off":
@@ -417,7 +466,8 @@ def _train(args: argparse.Namespace, ft: Optional[FTConfig] = None,
         elastic=None if args.elastic == "off" else args.elastic,
         telemetry=telemetry)
     trainer.run(args.epochs, checkpoint_dir=args.checkpoint_dir,
-                profile_dir=args.profile_dir)
+                profile_dir=args.profile_dir, publish_dir=args.publish_dir,
+                publish_every=args.publish_every)
     if args.save and not trainer.preempted and trainer.rank_death is None:
         os.makedirs(args.save, exist_ok=True)
         torch.save(trainer.state.model.state_dict(),
@@ -587,7 +637,8 @@ def serve_frontend_main(args: argparse.Namespace, telemetry) -> dict:
     device-pinned engine replicas behind the least-loaded router and the
     socket front-end; replay the seeded tiered trace over a REAL socket at
     each offered load, print ONE JSON line (address, startup, router and
-    per-load goodput/attainment stats) and return it."""
+    per-load goodput/attainment stats; with --serve-publish-dir the
+    weight watcher's report under "publish") and return it."""
     from .ft import NULL_CHAOS
     from .serve import demo
     from .serve.frontend import FrontendClient, ServingFrontend
@@ -631,12 +682,20 @@ def serve_frontend_main(args: argparse.Namespace, telemetry) -> dict:
     tiers = demo.DEFAULT_TIERS if args.serve_slo_ms is None \
         else ((0, 1, float(args.serve_slo_ms)),)
     router = ReplicaRouter(replicas, telemetry=telemetry)
+    watcher = None
+    if args.serve_publish_dir is not None:
+        from .publish import WeightWatcher
+        watcher = WeightWatcher(
+            args.serve_publish_dir, replicas, telemetry=telemetry,
+            chaos=chaos, poll_interval_s=args.serve_publish_poll_ms / 1e3)
     stats = {}
     sizes = tuple(s for s in demo.SIZE_CHOICES if s <= buckets[-1])
     address = None
     # Leaving the router stops every replica, which waits for every
     # fence its worker owes (a dead replica's orphaned dispatches too).
     with router:
+        if watcher is not None:
+            watcher.start()
         try:
             with ServingFrontend(router, port=args.serve_port,
                                  telemetry=telemetry) as frontend:
@@ -652,12 +711,18 @@ def serve_frontend_main(args: argparse.Namespace, telemetry) -> dict:
                         stats[f"{rps:g}rps"] = demo.replay_load(
                             client, trace, pool=pool, seed=args.serve_seed)
         finally:
+            if watcher is not None:
+                watcher.stop()
             if client_tel is not None:
                 client_tel.finalize()
     out = {"address": list(address), "startup": startup,
            "router": router.stats(), "load": stats}
+    if watcher is not None:
+        out["publish"] = watcher.report()
     if telemetry.enabled:
         telemetry.update_manifest({"router": out["router"]})
+        if watcher is not None:
+            telemetry.update_manifest({"publish": out["publish"]})
     print(json.dumps(out))
     return out
 
@@ -687,6 +752,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             "refusing to fall back to the synthetic stand-in")
     get_model(args.model)     # an unknown name fails here, not in each rank
     ft = ft_config_from_args(args)    # so does a refused ft config
+    if args.publish_every < 1:
+        raise SystemExit(f"--publish-every must be >= 1, got "
+                         f"{args.publish_every}")
     if args.resume_world is not None and args.elastic == "off":
         raise SystemExit("--resume-world requires --elastic (weak|strong): "
                          "without a declared protocol there is no defined "

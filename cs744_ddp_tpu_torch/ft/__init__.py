@@ -16,12 +16,14 @@ Trainer without ``host_augment``, where the reference would never fire it.
 The rank sites (``rank_death``, ``slow_rank``) fire at the Trainer's
 window boundaries (``Trainer._rank_boundary``) and ``coordinator_loss`` in
 the elastic coordinator (``elastic/coordinator.py``), so it is accepted
-only under ``elastic``.  The replica sites ``replica_death``,
-``slow_replica`` and ``dispatch_fault`` fire in the serving tier's
-replicas (``serve/replica.py``, the CLI's ``--serve-frontend``), and only
-there: the Trainer refuses them.  ``swap_mid_batch`` and the publish sites
-need the publishing layer, which is not ported yet: every run refuses
-them (``check_sites``).
+only under ``elastic``.  The publish sites (``publish_torn``,
+``publish_stale``) fire in the weight publisher of a run with a publish
+directory (``Trainer.run(publish_dir=)``, ``--publish-dir``), and are
+refused without one.  The replica sites ``replica_death``,
+``slow_replica``, ``dispatch_fault`` and ``swap_mid_batch`` fire in the
+serving tier's replicas (``serve/replica.py``, the CLI's
+``--serve-frontend``), and only there: the Trainer refuses them;
+``swap_mid_batch`` also needs a weight watcher (``--serve-publish-dir``).
 """
 
 from __future__ import annotations
@@ -37,16 +39,13 @@ from .supervisor import (StagingStalled, Watchdog, batch_checksums,
 
 # The sites that fire on the host-augment staging pipeline only.
 STAGING_SITES = ("producer_crash", "put_delay", "put_fail", "corrupt_slot")
-# The sites the port's Trainer fires, and the elastic coordinator
-# (coordinator_loss).
+# The sites a training run fires: the port's Trainer, the elastic
+# coordinator (coordinator_loss) and the weight publisher (the publish
+# sites).
 FIRED_SITES = STAGING_SITES + ("nonfinite_grad", "preempt") + RANK_SITES \
-    + ("coordinator_loss",)
+    + ("coordinator_loss",) + PUBLISH_SITES
 # The sites the serving tier's replicas fire (--serve-frontend).
-SERVE_SITES = ("replica_death", "slow_replica", "dispatch_fault")
-# Every other site, by the ROADMAP queue 1 item that brings its layer.
-_LATER = dict.fromkeys(
-    [s for s in REPLICA_SITES + PUBLISH_SITES if s not in SERVE_SITES],
-    "queue 1 item 5c (publishing)")
+SERVE_SITES = REPLICA_SITES
 
 
 class FTConfig(NamedTuple):
@@ -87,25 +86,28 @@ class FTConfig(NamedTuple):
 
 
 def check_sites(chaos, host_augment: bool = False,
-                elastic: bool = False, serving: bool = False) -> None:
-    """Refuse a plan that names a site the run would not fire: one the
-    port has not ported yet, a replica site in training or a training
-    site in serving (``serving``: the serving tier's replicas), a staging
-    site without ``host_augment``, or ``coordinator_loss`` without
-    ``elastic`` (no coordinator runs).  Each would be accepted and then
-    never fire."""
+                elastic: bool = False, serving: bool = False,
+                publish: bool = False) -> None:
+    """Refuse a plan that names a site the run would not fire: a replica
+    site in training or a training site in serving (``serving``: the
+    serving tier's replicas), a staging site without ``host_augment``,
+    ``coordinator_loss`` without ``elastic`` (no coordinator runs), a
+    publish site in training without ``publish`` (no publisher runs:
+    ``--publish-dir``), or ``swap_mid_batch`` in serving without
+    ``publish`` (no watcher to probe: ``--serve-publish-dir``).  Each
+    would be accepted and then never fire."""
     for entry in chaos.spec():
         site = entry["site"]
-        if site in _LATER:
-            raise ValueError(
-                f"chaos site {site!r} is not ported yet: it comes with "
-                f"ROADMAP {_LATER[site]}; the port fires {FIRED_SITES} in "
-                f"training and {SERVE_SITES} under --serve-frontend")
         if serving:
             if site not in SERVE_SITES:
                 raise ValueError(
                     f"chaos site {site!r} fires in training only; the "
                     f"serving tier (--serve-frontend) fires {SERVE_SITES}")
+            if site == "swap_mid_batch" and not publish:
+                raise ValueError(
+                    "chaos site 'swap_mid_batch' probes the weight "
+                    "watcher inside a dispatch: it needs "
+                    "--serve-publish-dir")
             continue
         if site in SERVE_SITES:
             raise ValueError(
@@ -119,6 +121,10 @@ def check_sites(chaos, host_augment: bool = False,
             raise ValueError(
                 "chaos site 'coordinator_loss' fires in the elastic "
                 "coordinator only: it needs elastic (--elastic weak|strong)")
+        if site in PUBLISH_SITES and not publish:
+            raise ValueError(
+                f"chaos site {site!r} fires in the weight publisher only: "
+                f"it needs publish_dir (--publish-dir)")
 
 
 __all__ = [

@@ -5,8 +5,11 @@ spec grammar and ``rng`` draws, so that one spec means the same faults in
 both packages.  The port's ``Trainer`` fires ``nonfinite_grad``,
 ``preempt``, ``rank_death``, ``slow_rank`` and, with ``host_augment``,
 the four staging sites; the elastic coordinator fires
-``coordinator_loss``.  A plan that names a replica or publish site is
-refused (``ft.check_sites``): those layers are not ported yet.
+``coordinator_loss``; the weight publisher of a run with a publish
+directory fires ``publish_torn`` and ``publish_stale``; the serving
+tier's replicas fire the replica sites (``swap_mid_batch`` with a weight
+watcher attached).  ``ft.check_sites`` refuses a site the run would not
+fire.
 ``pending`` (the port's own) hands the unfired entries to the processes
 of the next elastic generation.
 

@@ -20,6 +20,13 @@ beta), any other holds w/b.  Conv weights go HWIO <-> OIHW (3x3 and 1x1
 alike), linear weights [in,out] <-> [out,in]; vectors carry over as they
 are.  Nothing counts blocks: both directions walk the names they are given.
 
+The serving tree (``serving_leaves``, ``serving_signature``,
+``state_dict_from_leaves``) is what a published weight bundle holds
+(``publish/``): the leaves of the reference's
+``jax.tree_util.tree_flatten((params, bn_state))`` and that treedef's
+``str``, rendered here without JAX, so that a bundle of either package
+validates against an engine of either.
+
 Comm state: the reference stacks every worker's residuals (a params-like
 pytree with a leading world axis) and keys PowerSGD's Q factors by leaf
 index (``"000"``, ... in ``jax.tree.leaves`` order of the params, which
@@ -220,3 +227,82 @@ def comm_to_jax(per_rank: Sequence[Dict[str, Any]],
             [_np(c["q"][n]) for c in per_rank])
             for n in per_rank[0]["q"]}
     return out
+
+
+# -- the serving tree: what a weight bundle holds (publish/) -----------------
+
+
+def _serving_tree(names: Sequence[str]) -> Tuple[Any, Any]:
+    """The reference's ``(params, bn_state)`` tree over the port's names:
+    each leaf is the port name it stands for (``num_batches_tracked``,
+    which the reference lacks, left out)."""
+    stats = [n for n in names if n.endswith(tuple(_STATS.values()))]
+    params = [n for n in names
+              if n not in set(stats) and not n.endswith(_SKIPPED)]
+    return (_build((jax_path(n), n) for n in params),
+            _build((jax_path(n), n) for n in stats))
+
+
+def _render(node) -> str:
+    if isinstance(node, dict):
+        return "{" + ", ".join(f"{k!r}: {_render(node[k])}"
+                               for k in sorted(node)) + "}"
+    if isinstance(node, list):
+        return "[" + ", ".join(_render(v) for v in node) + "]"
+    if isinstance(node, tuple):
+        inner = ", ".join(_render(v) for v in node)
+        return f"({inner},)" if len(node) == 1 else f"({inner})"
+    return "*"
+
+
+def treedef_str(tree) -> str:
+    """``str(jax.tree_util.tree_structure(tree))`` of a tree of dicts,
+    lists and tuples, without JAX: dicts with their keys sorted and
+    single-quoted, ``*`` for a leaf."""
+    return f"PyTreeDef({_render(tree)})"
+
+
+def _reference_shape(shape) -> Tuple[int, ...]:
+    s = tuple(int(d) for d in shape)
+    if len(s) == 4:                       # OIHW -> HWIO
+        return (s[2], s[3], s[1], s[0])
+    if len(s) == 2:
+        return (s[1], s[0])
+    return s
+
+
+def serving_signature(sd: Dict[str, torch.Tensor]
+                      ) -> Tuple[str, Tuple[Tuple[Tuple[int, ...], str], ...]]:
+    """(treedef string, ((shape, dtype), ...)) of ``serving_leaves(sd)``,
+    from the names, shapes and dtypes alone (nothing is copied): the
+    reference engine's ``_key_fields["abstract"]``."""
+    tree = _serving_tree(list(sd))
+    return treedef_str(tree), tuple(
+        (_reference_shape(sd[n].shape), str(sd[n].dtype).replace("torch.", ""))
+        for _, n in _walk(tree))
+
+
+def serving_leaves(sd: Dict[str, torch.Tensor]
+                   ) -> Tuple[List[np.ndarray], str]:
+    """The port's state_dict -> (leaves, treedef string) of the reference's
+    ``jax.tree_util.tree_flatten((params, bn_state))``: NumPy arrays in
+    ``jax.tree.leaves`` order, conv HWIO, linear [in, out]."""
+    tree = _serving_tree(list(sd))
+    return [_to_reference(sd[n]) for _, n in _walk(tree)], treedef_str(tree)
+
+
+def state_dict_from_leaves(leaves: Sequence[np.ndarray],
+                           template: Dict[str, torch.Tensor]
+                           ) -> Dict[str, torch.Tensor]:
+    """``serving_leaves``' inverse: leaves in the reference's order and
+    layout -> a state_dict with ``template``'s names, as CPU tensors; each
+    ``num_batches_tracked`` (not in a bundle) is ``template``'s own
+    tensor."""
+    paths = [p for p, _ in _walk(_serving_tree(list(template)))]
+    if len(leaves) != len(paths):
+        raise ValueError(f"{len(leaves)} leaves for a tree of {len(paths)}")
+    halves = [[(p[1:], a) for p, a in zip(paths, leaves) if p[0] == i]
+              for i in (0, 1)]
+    sd = from_jax(_build(halves[0]), _build(halves[1]))
+    sd.update((n, v) for n, v in template.items() if n.endswith(_SKIPPED))
+    return sd

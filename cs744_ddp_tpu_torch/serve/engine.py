@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, set_f32_parity
-from ..models import get_model
+from ..models import convert, get_model
 from ..models.serving import make_u8_forward
 from ..obs import NULL
 from ..train.step import WARMUP_ITERS
@@ -156,7 +156,14 @@ class InferenceEngine:
         # The tensors the rungs read, by name: install_weights copies into
         # them in place.
         self._weights = self.model.state_dict()
-        # Bumped by install_weights() (publish/ hot-swap).
+        # What a published bundle must match (publish/watcher.py): the
+        # abstract signature in the reference's layout, (treedef string,
+        # ((shape, dtype), ...)) of convert.serving_leaves, under the
+        # reference engine's key.
+        self._key_fields = {
+            "abstract": convert.serving_signature(self._weights)}
+        # Bumped by install_weights() (publish/ hot-swap); tagged into
+        # every Reply so the A/B pin is checkable per request.
         self.weights_version = 0
         self._forward = {p: make_u8_forward(self.model, dt)
                          for p, dt in _DTYPES.items()}
@@ -178,12 +185,14 @@ class InferenceEngine:
 
         The graphs read the model's parameters and buffers where they were
         captured, so this is an in-place ``copy_`` under ``no_grad``: no
-        rung is recaptured.  A state whose names, shapes or dtypes differ
-        from the ladder's is refused here rather than at the next
-        dispatch.
+        rung is recaptured, and the bf16 rungs, which cast the f32 weights
+        inside their graphs, read the new version too.  A state whose
+        names, shapes or dtypes differ from the ladder's is refused here
+        rather than at the next dispatch.
 
         NOT internally synchronized: the caller guarantees that no dispatch
-        is in flight (the pipeline is drained).  ``assume_staged=True``
+        is in flight (the scheduler runs installs through
+        ``request_install`` when its pipeline is drained).  ``assume_staged=True``
         says the tensors are already on the engine's device (staged off
         the serving path beforehand); one that is not is refused.
         """

@@ -18,9 +18,10 @@ sites against its OWN dispatch counter — ``slow_replica:STEP:REPLICA``
 stalls dispatch STEP by ``slow_stall_s`` (a straggler),
 ``replica_death:STEP:REPLICA`` raises ``ChaosError`` inside the worker,
 exercising the router's failover path (no accepted request is silently
-dropped).  ``swap_mid_batch`` races a weight publish against a dispatch:
-it comes with the publishing layer (ROADMAP queue 1 item 5c), and
-``ft.check_sites`` refuses it until then.
+dropped), ``swap_mid_batch:STEP:REPLICA`` calls the attached
+``WeightWatcher``'s non-blocking poll (``swap_probe``) inside dispatch
+STEP's hook, racing a pending publish against that dispatch: the racing
+dispatch is answered wholly by the old weights, the next by the new.
 
 ``dispatch_fault:STEP:REPLICA`` fires on the scheduler's COMPLETION
 hook instead: dispatch STEP's device result is discarded at its fence
@@ -63,6 +64,10 @@ class EngineReplica:
         self.chaos = chaos
         self.slow_stall_s = float(slow_stall_s)
         self._captured = False
+        # Non-blocking weight-watcher poll (publish.WeightWatcher attaches
+        # it); the swap_mid_batch chaos site calls it inside the dispatch
+        # hook to race a publish against a live dispatch.
+        self.swap_probe = None
         self.engine = InferenceEngine(
             model, buckets=buckets, precisions=(precision,), state=state,
             seed=seed, telemetry=tel, cache_dir=cache_dir, device=device,
@@ -88,6 +93,12 @@ class EngineReplica:
                 and ch.fire("slow_replica", dispatch_no):
             self._note_chaos("slow_replica", dispatch_no)
             time.sleep(self.slow_stall_s)
+        if dispatch_no in ch.steps("swap_mid_batch") \
+                and ch.seed_of("swap_mid_batch", dispatch_no) == self.index \
+                and ch.fire("swap_mid_batch", dispatch_no) \
+                and self.swap_probe is not None:
+            self._note_chaos("swap_mid_batch", dispatch_no)
+            self.swap_probe()
         if dispatch_no in ch.steps("replica_death") \
                 and ch.seed_of("replica_death", dispatch_no) == self.index \
                 and ch.fire("replica_death", dispatch_no):

@@ -44,11 +44,11 @@ along:
 * the EWMA observes per-dispatch DEVICE OCCUPANCY
   (``t_ready - max(t_issue, prev_done)``), not the overlapped wall
   interval, so predictions stay additive across slots;
-* each reply carries the engine's ``weights_version`` read at issue
-  (the hot-swap A/B pin); the reference's install queue, which lands a
-  weight flip only when the pipeline is drained (``request_install``),
-  has no caller until the publishing layer is ported (ROADMAP queue 1
-  item 5c) and comes with it;
+* weight installs (``request_install``) run only when the pipeline is
+  fully DRAINED — the engine-free instant between in-flight pairs — so
+  the hot-swap A/B pin (no torn weights, per-batch version tag) holds
+  under pipelining: each reply carries the engine's ``weights_version``
+  read at issue;
 * a fault surfacing at completion of slot N (the ``dispatch_fault``
   chaos site) resolves slot N's requests as explicit errors and slot
   N+1's normally — never a silent drop.
@@ -492,7 +492,7 @@ class SLOScheduler:
 
     _lock_owned = ("_pending", "_pending_images", "_inflight", "_stop",
                    "_dead", "_busy_s", "_busy_until", "_worker",
-                   "_t0_wall")
+                   "_t0_wall", "_installs")
 
     def __init__(self, engine, *, svc: Optional[ServiceModel] = None,
                  shed: bool = True, max_queue_images: int = 1024,
@@ -530,6 +530,9 @@ class SLOScheduler:
         self._worker: Optional[threading.Thread] = None
         self._t0_wall: Optional[float] = None
         self._dispatches = 0          # worker-thread-local dispatch index
+        # Engine-free-instant work queue (weight installs): closures the
+        # worker runs between dispatches, each with its Future.
+        self._installs: List[Tuple[Callable[[], object], Future]] = []
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -558,6 +561,13 @@ class SLOScheduler:
             self._cond.notify_all()
         if worker is not None:
             worker.join()
+        # Installs queued after the worker's last boundary check would be
+        # stranded — run them inline (the worker is gone, so this thread
+        # IS the engine-free instant).
+        with self._cond:
+            leftovers = self._installs
+            self._installs = []
+        self._run_installs(leftovers)
         t_now = time.time()
         with self._cond:
             self._worker = None
@@ -622,6 +632,41 @@ class SLOScheduler:
         if tel.enabled:
             tel.counter("serve_admitted", tier=req.tier, replica=self.replica)
         return req.future
+
+    def request_install(self, fn: Callable[[], object]) -> Future:
+        """Queue ``fn`` (a weight-flip closure from the publish watcher)
+        to run at the worker's next engine-free instant — between
+        dispatches, so no batch can observe a torn weight tree.  Returns
+        a Future resolving to ``fn()``'s result (or its exception).
+
+        With no live worker (not started, stopped, or dead) there is no
+        dispatcher to race, so ``fn`` runs inline right here.  Safe to
+        call from inside a dispatch hook (the ``swap_mid_batch`` chaos
+        probe): the hook runs ON the worker thread, the install is merely
+        queued, and it lands after the current dispatch completes — the
+        caller must not block on the Future from that context.
+        """
+        fut: Future = Future()
+        inline = False
+        with self._cond:
+            if self._worker is None or self._dead or self._stop:
+                inline = True
+            else:
+                self._installs.append((fn, fut))
+                self._cond.notify_all()
+        if inline:
+            self._run_installs([(fn, fut)])
+        return fut
+
+    @staticmethod
+    def _run_installs(installs) -> None:
+        for fn, fut in installs:
+            if fut.done():
+                continue
+            try:
+                fut.set_result(fn())
+            except Exception as exc:   # install failure must not kill serving
+                fut.set_exception(exc)
 
     def _retry_hint_ms_locked(self, n: int) -> float:
         """Time for the backlog to drain enough to admit ``n`` more images
@@ -694,22 +739,31 @@ class SLOScheduler:
             self.engine.complete(inflight.pop(0)["handle"])
 
     def _next_admission(self):
-        with self._cond:
-            while True:
-                if self._pending:
-                    now = time.time()
-                    adm = admit(self._pending, now, buckets=self.buckets,
-                                predict_s=self.svc.predict, shed=self.shed)
-                    taken = {id(r) for r in adm.batch}
-                    taken.update(id(r) for r, _ in adm.shed)
-                    self._pending = [r for r in self._pending
-                                     if id(r) not in taken]
-                    self._pending_images = sum(r.n for r in self._pending)
-                    self._inflight = adm.batch
-                    return adm, now
-                if self._stop:
-                    return None
-                self._cond.wait()
+        while True:
+            with self._cond:
+                installs = self._installs
+                self._installs = []
+                if not installs:
+                    if self._pending:
+                        now = time.time()
+                        adm = admit(self._pending, now, buckets=self.buckets,
+                                    predict_s=self.svc.predict,
+                                    shed=self.shed)
+                        taken = {id(r) for r in adm.batch}
+                        taken.update(id(r) for r, _ in adm.shed)
+                        self._pending = [r for r in self._pending
+                                         if id(r) not in taken]
+                        self._pending_images = sum(r.n for r in self._pending)
+                        self._inflight = adm.batch
+                        return adm, now
+                    if self._stop:
+                        return None
+                    self._cond.wait()
+                    continue
+            # Engine-free instant: no dispatch in flight, lock released
+            # (an install copies into the engine's weights and waits for
+            # it — admission and enqueue must not stall behind it).
+            self._run_installs(installs)
 
     # -- pipelined worker (two in-flight slots) -----------------------------
 
@@ -724,6 +778,12 @@ class SLOScheduler:
             op, payload = self._next_pipeline_op(len(inflight))
             if op == "exit":
                 return
+            if op == "installs":
+                # Pipeline fully drained: the engine-free instant between
+                # in-flight pairs — the only point a weight flip may land
+                # (lock released; an install may take its time).
+                self._run_installs(payload)
+                continue
             if op == "complete":
                 prev_done = self._complete_oldest(inflight, prev_done)
             else:  # "admit"
@@ -739,11 +799,17 @@ class SLOScheduler:
                           replica=self.replica)
 
     def _next_pipeline_op(self, have: int):
-        """Pick the worker's next action under the lock.  Priority:
-        admit-and-issue into a free slot; complete the oldest in-flight
-        dispatch; exit when stopped and drained."""
+        """Pick the worker's next action under the lock.  Priority: drain
+        toward queued installs; admit-and-issue into a free slot; complete
+        the oldest in-flight dispatch; exit when stopped and drained."""
         while True:
             with self._cond:
+                if self._installs:
+                    if have:
+                        return "complete", None
+                    installs = self._installs
+                    self._installs = []
+                    return "installs", installs
                 if self._pending and have < PIPELINE_SLOTS:
                     now = time.time()
                     adm = admit(self._pending, now, buckets=self.buckets,
@@ -774,7 +840,9 @@ class SLOScheduler:
         if hook is not None:
             hook(dno, bucket)
         self._dispatches += 1
-        # The version serving THIS batch, read once at issue.
+        # The version serving THIS batch, read once at issue.  Installs
+        # only land when the pipeline is drained, so no install can flip
+        # weights between this read and the graph replay reading them.
         version = int(getattr(self.engine, "weights_version", -1))
         images, labels = self._assemble(batch)
         traces = tuple(r.trace for r in batch)
@@ -914,7 +982,12 @@ class SLOScheduler:
         if hook is not None:
             hook(dno, bucket)
         self._dispatches += 1
-        # The version serving THIS batch, read once at dispatch.
+        # The version serving THIS batch, read once at dispatch.  Installs
+        # only land at loop boundaries (never mid-dispatch), so the value
+        # read here is exactly the weights the replay will read — the
+        # per-request A/B pin.  A swap_mid_batch probe fired by the hook
+        # above only QUEUES an install; this batch still runs (and is
+        # tagged) on the old weights.
         version = int(getattr(self.engine, "weights_version", -1))
         images, labels = self._assemble(batch)
         traces = tuple(r.trace for r in batch)
@@ -1001,7 +1074,13 @@ class SLOScheduler:
             self._inflight = ()
             self._pending = []
             self._pending_images = 0
+            installs = self._installs
+            self._installs = []
             self._cond.notify_all()
+        for _, fut in installs:        # a dead replica installs nothing
+            if not fut.done():
+                fut.set_exception(RuntimeError(
+                    f"replica {self.replica} died before install: {exc}"))
         if self.telemetry.enabled:
             self.telemetry.counter("replica_dead", replica=self.replica,
                                    error=type(exc).__name__)

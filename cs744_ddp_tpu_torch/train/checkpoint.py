@@ -101,6 +101,24 @@ def state_digest(named: Tensors) -> str:
                 for k, v in named.items() if not k.startswith("comm/")])
 
 
+# The identity keys a published weight bundle carries (publish/): enough
+# for the serving side to refuse a bundle from the wrong run/architecture,
+# none of the training-only knobs (lr, augment, ...) that don't affect
+# what the weights ARE.
+_PUBLISH_FINGERPRINT_KEYS = ("model", "strategy", "precision", "seed",
+                             "global_batch", "state_digest")
+
+
+def publish_fingerprint(config: dict) -> dict:
+    """Model/config identity stamped into published weight bundles —
+    the same fields the checkpoint config guard validates, plus the
+    port's state-format stamp (only ``model`` is compared by a watcher,
+    of either package)."""
+    fp = {k: config[k] for k in _PUBLISH_FINGERPRINT_KEYS if k in config}
+    fp.setdefault("state_format_version", STATE_FORMAT_VERSION)
+    return fp
+
+
 def read_epoch_meta(directory: str) -> Optional[dict]:
     """The sidecar of the latest EPOCH save (world, global_batch, seed,
     reshuffle_each_epoch, rank_keys, epoch), or None."""

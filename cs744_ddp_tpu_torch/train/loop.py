@@ -106,7 +106,9 @@ from ..parallel import strategies
 from ..parallel.mesh import all_gather_into
 from ..utils.metrics import WINDOW, WindowedTimers
 from . import step as steplib
-from .checkpoint import CheckpointManager, state_digest, validate_rank_keys
+from ..publish import WeightPublisher
+from .checkpoint import (CheckpointManager, publish_fingerprint,
+                         state_digest, validate_rank_keys)
 
 GLOBAL_BATCH = 256      # the reference's batch_size
 SEED = 0                # the reference's torch.manual_seed(0)
@@ -330,7 +332,8 @@ class Trainer:
 
     ``ft``: the fault-tolerance config (None: no guard, no chaos, no
     staging supervision; the step is built as without it).  Its plan may
-    name only the sites the port fires (``ft.check_sites``).
+    name only the sites the port fires (``ft.check_sites``; the publish
+    sites with ``run(publish_dir=)`` only).
 
     ``host_augment``: the C++ host pipeline crops and flips (see the
     module docstring), each window staged in ``host_chunks`` chunks.
@@ -383,7 +386,10 @@ class Trainer:
         # Fault tolerance: ft=None keeps every hot path as without it.
         self.ft = ft
         self.chaos = ft.chaos if ft is not None else NULL_CHAOS
-        check_sites(self.chaos, host_augment, elastic is not None)
+        # The publish sites need run(publish_dir=), which refuses them
+        # without one.
+        check_sites(self.chaos, host_augment, elastic is not None,
+                    publish=True)
         self.host_augment = host_augment
         self.host_chunks = int(host_chunks)
         self.reshuffle_each_epoch = reshuffle_each_epoch
@@ -1948,7 +1954,9 @@ class Trainer:
         return 0, 0
 
     def run(self, epochs: int = 1, checkpoint_dir: Optional[str] = None,
-            profile_dir: Optional[str] = None) -> None:
+            profile_dir: Optional[str] = None,
+            publish_dir: Optional[str] = None,
+            publish_every: int = 1) -> None:
         """Epochs of train + eval with the epoch timing line.
 
         With ``profile_dir``: the first epoch this run trains, under
@@ -1963,7 +1971,29 @@ class Trainer:
         a return with ``self.preempted`` set; a later ``run`` on the same
         directory resumes from that step, bitwise.  A SIGTERM to one rank
         alone leaves its peers waiting at their next collective: a
-        scheduler signals every rank of a job."""
+        scheduler signals every rank of a job.
+
+        With ``publish_dir``: the serving half of the state (parameters +
+        BatchNorm statistics) is published as a versioned, crc-checksummed
+        CCWB1 bundle every ``publish_every`` completed epochs, after the
+        eval and the save, by rank 0 alone (``publish/``): a serving
+        process watching the directory (``--serve-publish-dir``) installs
+        each version between dispatches.  The publish chaos sites are
+        refused without it."""
+        publisher = None
+        if publish_dir is None:
+            check_sites(self.chaos, self.host_augment,
+                        self.elastic is not None)
+        else:
+            if publish_every < 1:
+                raise ValueError(f"publish_every must be >= 1, "
+                                 f"got {publish_every}")
+            if self.rank == 0:
+                publisher = WeightPublisher(
+                    publish_dir,
+                    fingerprint=publish_fingerprint(
+                        self.checkpoint_config()),
+                    telemetry=self.telemetry, chaos=self.chaos)
         start_epoch, start_step = 0, 0
         mngr = None
         if checkpoint_dir is not None:
@@ -2036,6 +2066,13 @@ class Trainer:
                         self._save(mngr, epoch)
                     if self._nf_policy == "restore":
                         self._snapshot_rollback()
+                if publisher is not None \
+                        and (epoch + 1) % publish_every == 0:
+                    with self.telemetry.span("publish", epoch=epoch):
+                        rec = publisher.publish(self.state)
+                    self.log(f"Published weights v{rec['version']} "
+                             f"({rec['bytes']} B, {rec['leaves']} leaves) "
+                             f"to {publish_dir}")
                 if self._preempt_guard is not None and \
                         self._preempt_guard.requested:
                     # The signal landed during eval or the save: the epoch

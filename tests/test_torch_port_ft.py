@@ -122,23 +122,27 @@ def _narrow(log=None, **kw):
 
 
 @pytest.mark.parametrize("site", [s for s in jchaos.SITES
-                                  if s not in ft.FIRED_SITES
-                                  or s in ft.STAGING_SITES])
+                                  if s in ft.STAGING_SITES + ft.SERVE_SITES
+                                  + ft.PUBLISH_SITES])
 def test_trainer_refuses_a_site_it_cannot_fire(site):
-    """A site of a layer not ported yet, a replica site (it fires in the
-    serving tier's replicas only, tests/test_torch_port_frontend.py), and
-    a staging site on a Trainer without host_augment
-    (tests/test_torch_port_host.py holds the staging sites accepted with
-    it)."""
+    """A replica site (it fires in the serving tier's replicas only,
+    tests/test_torch_port_frontend.py), a staging site on a Trainer
+    without host_augment (tests/test_torch_port_host.py holds the staging
+    sites accepted with it), and a publish site on a run without a
+    publish directory (tests/test_torch_port_publish.py holds them
+    accepted with one: the Trainer takes them, and ``run`` refuses them
+    without ``publish_dir``)."""
     plan = ChaosPlan.parse([f"{site}:3"])
     if site in ft.STAGING_SITES:
         why, cli_why = "host_augment", "host-augment"
     elif site in ft.SERVE_SITES:
         why = cli_why = "serving tier.*--serve-frontend"
     else:
-        why, cli_why = r"not ported yet.*queue 1 item", "queue 1 item"
+        why, cli_why = "needs publish_dir", "--publish-dir"
     with pytest.raises(ValueError, match=why):
-        _narrow(ft=FTConfig(nonfinite="skip", chaos=plan))
+        tr = _narrow(ft=FTConfig(nonfinite="skip", chaos=plan))
+        assert site in ft.PUBLISH_SITES
+        tr.run(1)
     with pytest.raises(SystemExit, match=cli_why):
         cli.ft_config_from_args(cli.parse_args(
             ["--nonfinite", "skip", "--chaos", f"{site}:3"]))
