@@ -221,8 +221,9 @@ Phases, in order; any failure exits non-zero:
                the ``serve_service_ms`` records), and within rtol/atol
                1e-4 of the request alone (how many bitwise is printed: the
                bits depend on the bucket); the two 2000-rps runs bitwise
-               equal wherever a request rode in the same bucket, which at
-               least a quarter of the requests must; recorded per load:
+               equal wherever a request rode in the same bucket, and a
+               request that rode in another bitwise both replicas' serial
+               dispatch in each of its buckets; recorded per load:
                client round-trip p50, p95 and p99 by tier, attainment,
                ok/late/shed/overload counts, achieved rps and images/s,
                the driver's lag, the router's routed and failovers, the
@@ -271,12 +272,40 @@ Phases, in order; any failure exits non-zero:
                racing dispatch wholly on the old version, the next on
                the new, the probe's time on the worker thread printed);
                and no bnpool kernel run in the serving half;
- 14. report  — the ``kernels`` JSON line (each kernel in f32, with the
+ 14. obs     — serving observability and the cost model: the CLI
+               ``--serve-frontend --serve-alerts on --telemetry-out S
+               --serve-trace-client C``, one VGG-11 replica on the card,
+               400 requests at 200 rps: every request one reply, no alert
+               fired, the manifest's ``alerts`` the last line's, none on a
+               replay of its records (the rules' time a record printed);
+               the cost-model prior (``cost_model_weights`` of a VGG-11
+               engine of the same buckets) is counted before it starts,
+               so nothing else runs beside it; then ``python -m
+               cs744_ddp_tpu_torch.obs.aggregate S C --json`` with that
+               prior (the CPU tests hold it equal to
+               ``tools/trace_waterfall.py``'s report): the client's
+               clock skew from at least 10 pairs, at least 10 complete
+               waterfalls spanning both processes, each with
+               ``device_compute`` and its stage sum within the client's
+               round trip plus the skew bound; printed: per-stage p50/p99,
+               the client round trip's, and ``measured_over_prior`` by
+               bucket.  The same CLI with two replicas, ``--chaos
+               slow_replica:0:0 --serve-shed off --serve-slo-ms 0.01``:
+               every request served, and exactly ``SLO_BURN`` and
+               ``STRAGGLER`` fired.  Then the VGG-11 ``single`` train step
+               at batch 256 in f32 and bf16: ``step_flops_per_image``
+               (``Trainer.step_cost``, the cost model on meta tensors),
+               the steady step of one 20-step window of replays,
+               ``mfu_fields``, ``attribute`` (f32 against the f32 peak,
+               ``max_memory_allocated`` of the window as its peak), and
+               each bnpool kernel run 5 times a step on the device in that
+               window;
+ 15. report  — the ``kernels`` JSON line (each kernel in f32, with the
                main path's runs, and in bf16, with the VGG-11 bf16 path's;
                ``launches_by_path`` also holds the host, elastic, serve,
-               serve_tier and publish paths' runs), the card's name and
-               power limit, and as the last line ``{"ok": true, "device":
-               {...}}``.
+               serve_tier, publish and obs paths' runs), the card's name
+               and power limit, and as the last line ``{"ok": true,
+               "device": {...}}``.
 
 ``--time-only`` runs phases 1 and 3 and stops.  ``--root DIR`` times the
 kernels of the checkout at DIR instead (for example the parent commit,
@@ -1033,18 +1062,22 @@ def free_port():
         return s.getsockname()[1]
 
 
-def run_cli(args, label, timeout=600):
-    """``python -m cs744_ddp_tpu_torch.cli ARGS`` in a session of its own
-    (a timeout kills the ranks it spawned); its stdout, or a failure.  On
-    a timeout every process of the session first dumps its threads'
-    Python stacks (faulthandler, on SIGABRT), and the failure carries the
-    output's tails."""
+def start_cli(args):
+    """``python -m cs744_ddp_tpu_torch.cli ARGS`` started in a session of
+    its own (a timeout kills the ranks it spawned); ``finish_cli`` waits
+    for it."""
     cmd = [sys.executable, "-m", "cs744_ddp_tpu_torch.cli"] + list(args)
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True,
                             start_new_session=True,
                             env={**os.environ, "PYTHONFAULTHANDLER": "1"},
                             cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def finish_cli(proc, label, timeout=600):
+    """A started CLI's stdout, or a failure.  On a timeout every process
+    of its session first dumps its threads' Python stacks (faulthandler,
+    on SIGABRT), and the failure carries the output's tails."""
     try:
         stdout, stderr = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -1063,6 +1096,19 @@ def run_cli(args, label, timeout=600):
     check(proc.returncode == 0, f"{label} failed:\n"
           f"{stdout[-3000:]}\n{stderr[-3000:]}")
     return stdout
+
+
+def kill_cli(proc):
+    """Kill a started CLI's session, if it still runs."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+
+
+def run_cli(args, label, timeout=600):
+    """``start_cli`` and ``finish_cli``: the CLI's stdout, or a
+    failure."""
+    return finish_cli(start_cli(args), label, timeout)
 
 
 def spawn_world(world, tier, out_dir, card_line, model="vgg11"):
@@ -2806,7 +2852,7 @@ def phase_serve_tier(card_line):
           f"card, both ladders: "
           f"{ {k: round(v, 1) for k, v in peak.items()} } MiB  [{card_line}]")
     pst.warm(replicas, pool, rng, SERVE_TIER_WARM)
-    runs = {}
+    runs, images = {}, {}
     for label, rps, pipeline, sync_debug in (
             ("200 rps pipeline on (sync-debug \"error\")", 200.0, True,
              True),
@@ -2818,6 +2864,7 @@ def phase_serve_tier(card_line):
                                        label, sync_debug=sync_debug)
         got, bitwise = serve_tier_bits(replicas, sent, served, label)
         runs[label] = got
+        images[label] = [e["images"] for e in sent]
         print(f"[serve_tier] {label}: {len(got)} ok or late replies, each "
               f"bitwise its replica's serial dispatch of the request padded "
               f"to the bucket that served it, and within rtol/atol "
@@ -2827,17 +2874,39 @@ def phase_serve_tier(card_line):
               + "  ok")
     on, off = runs["2000 rps pipeline on"], runs["2000 rps pipeline off"]
     both = sorted(set(on) & set(off))
+    check(len(both) > 0 and all(
+        np.array_equal(images["2000 rps pipeline on"][i],
+                       images["2000 rps pipeline off"][i]) for i in both),
+          "serve_tier: the two 2000-rps runs served no request in common, "
+          "or other images")
     same_bucket = [i for i in both if on[i][0] == off[i][0]]
-    check(4 * len(same_bucket) >= len(both) > 0,
-          f"serve_tier: only {len(same_bucket)} of the {len(both)} requests "
-          f"served in both 2000-rps runs rode in the same bucket")
     check(all(np.array_equal(on[i][1], off[i][1]) for i in same_bucket),
           "serve_tier: pipeline on and off give other bits in one bucket")
+    # Which bucket a request rides in depends on the queue that the
+    # arrival timing leaves at each free slot, so how many requests share
+    # a bucket across the two runs varies from host to host.  A request
+    # that moved is held, in each run's bucket, against both replicas'
+    # serial dispatch: no request served in both runs escapes a bitwise
+    # comparison of the two modes, whatever the timing.
+    moved = [i for i in both if on[i][0] != off[i][0]]
+    for i in moved:
+        request = images["2000 rps pipeline off"][i]
+        for bucket, logits in (on[i], off[i]):
+            pad = np.zeros((bucket - len(request),) + request.shape[1:],
+                           np.uint8)
+            batch = np.concatenate([request, pad])
+            for rep in replicas:
+                rung = rep.engine.infer_counts(batch)[0]
+                check(np.array_equal(logits, rung[:len(request)]),
+                      f"serve_tier: request {i} differs in bucket {bucket} "
+                      f"from replica {rep.index}'s serial dispatch")
     equal = sum(np.array_equal(on[i][1], off[i][1]) for i in both)
     print(f"[serve_tier] pipeline on and off over the same 2000-rps trace: "
           f"of the {len(both)} requests served in both runs, the "
-          f"{len(same_bucket)} that rode in the same bucket bitwise equal; "
-          f"{equal} of {len(both)} bitwise equal in all  ok")
+          f"{len(same_bucket)} that rode in the same bucket bitwise equal, "
+          f"the {len(moved)} that rode in another each bitwise every "
+          f"replica's serial dispatch in both its buckets; {equal} of "
+          f"{len(both)} bitwise equal in all  ok")
     for rep in replicas:
         rep.scheduler.pipeline = True
     serve_tier_chaos(replicas, pool, rng, card_line)
@@ -2852,7 +2921,8 @@ def phase_serve_tier(card_line):
         last = json.loads(out.strip().splitlines()[-1])
         st = last["load"]["200rps"]
         manifest, events, summary = read_run(tmp)
-        check(set(last) == {"address", "startup", "router", "load"}
+        check(set(last) == {"address", "startup", "router", "load",
+                            "alerts"}
               and all(r["backend"] == "cuda"
                       for r in last["startup"].values())
               and st["replies"] == SERVE_TIER_CLI_REQUESTS
@@ -3260,6 +3330,213 @@ def _phase_publish(card_line, tmp):
     return {"publish": phase}
 
 
+OBS_REQUESTS = 400
+OBS_RPS = "200"
+OBS_SLOW_SLO_MS = "0.01"        # the drill's SLO: no request can meet it
+
+
+def obs_cli(tmp, name, args):
+    """The serving front-end CLI started on the card with the alert
+    engine on, its telemetry in ``tmp/name`` and its load client's in
+    ``tmp/name_client``: (the process, the two directories)."""
+    srv = os.path.join(tmp, name)
+    client = os.path.join(tmp, f"{name}_client")
+    proc = start_cli(["--serve-frontend", "--serve-alerts", "on",
+                      "--serve-requests", str(OBS_REQUESTS), "--serve-load",
+                      OBS_RPS, "--telemetry-out", srv,
+                      "--serve-trace-client", client] + args)
+    return proc, srv, client
+
+
+def obs_cli_result(proc, srv, label):
+    """A started ``obs_cli``'s last line and load stats, once every
+    request had its reply and the manifest holds the last line's
+    alerts."""
+    from cs744_ddp_tpu_torch.obs import read_run
+    out = finish_cli(proc, label, timeout=300)
+    last = json.loads(out.strip().splitlines()[-1])
+    st = last["load"][f"{OBS_RPS}rps"]
+    check(st["replies"] == OBS_REQUESTS and st["unresolved"] == 0
+          and all(c["error"] == 0 for c in st["by_tier"].values()),
+          f"{label}: load {st}")
+    manifest = read_run(srv)[0]
+    check(manifest["alerts"] == last["alerts"],
+          f"{label}: manifest alerts {manifest.get('alerts')}, last line "
+          f"{last['alerts']}")
+    return last, st
+
+
+def obs_waterfalls(srv, client, prior_file, card_line):
+    """``python -m cs744_ddp_tpu_torch.obs.aggregate`` over the two
+    directories, and what its report must hold."""
+    from cs744_ddp_tpu_torch.obs import percentile
+    proc = subprocess.run(
+        [sys.executable, "-m", "cs744_ddp_tpu_torch.obs.aggregate", srv,
+         client, "--json", "--max-waterfalls", str(10 * OBS_REQUESTS),
+         "--prior-flops", prior_file], capture_output=True, text=True,
+        timeout=120, cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, f"obs waterfall {proc.args}: "
+          f"{proc.stderr[-3000:]}")
+    mine = json.loads(proc.stdout)
+    cli = mine["processes"][os.path.basename(client)]
+    bound_ms = 2e3 * cli["rtt_bound_s"]
+    spanning = [w for w in mine["waterfalls"] if w["complete"]
+                and len(w["procs"]) == 2]
+    check(cli["skew_estimated"] and cli["skew_pairs"] >= 10
+          and len(spanning) >= 10
+          and all("device_compute" in w["stages"]
+                  and w["sum_ms"] <= w["client_ms"] + bound_ms
+                  for w in spanning),
+          f"obs waterfalls: client {cli}, {len(spanning)} spanning")
+    client_ms = [w["client_ms"] for w in spanning]
+    stages = ", ".join(f"{s} {a['p50']}/{a['p99']}"
+                       for s, a in mine["stage_ms"].items())
+    print(f"[obs] waterfalls (obs.aggregate): "
+          f"client skew from {cli['skew_pairs']} pairs, offset "
+          f"{1e3 * cli['clock_offset_s']:+.3f} ms +/- "
+          f"{1e3 * cli['rtt_bound_s']:.3f} ms; {mine['complete']} complete, "
+          f"{len(spanning)} spanning both processes, each with "
+          f"device_compute and its stage sum within the client round trip "
+          f"+ {bound_ms:.3f} ms; client round trip p50 "
+          f"{percentile(client_ms, 50):.3f} ms, p99 "
+          f"{percentile(client_ms, 99):.3f} ms; stage p50/p99 ms: {stages}; "
+          f"critical path {mine['critical_path']['dominant']}  "
+          f"[{card_line}]")
+    prior = {b: r["measured_over_prior"]
+             for b, r in mine["cost_prior"]["by_bucket"].items()}
+    print(f"[obs] device compute against the cost-model prior "
+          f"(cost_model_weights of the replica's engine): "
+          f"measured_over_prior by bucket {prior}, rate "
+          f"{mine['cost_prior']['rate_ms_per_flop']:.6g} ms a flop  "
+          f"[{card_line}]")
+
+
+def obs_attribution(precision, card_line):
+    """The VGG-11 ``single`` train step at batch 256: its analytic FLOPs,
+    one 20-step window of replays timed, ``mfu_fields`` and
+    ``attribute``; the kernels' runs on the device in that window."""
+    from types import SimpleNamespace
+    from cs744_ddp_tpu_torch.analysis.costmodel import (
+        H100_BF16_PEAK_FLOPS, H100_F32_PEAK_FLOPS)
+    from cs744_ddp_tpu_torch.obs.attribution import attribute
+    from cs744_ddp_tpu_torch.ops import bnpool
+    from cs744_ddp_tpu_torch.train.loop import Trainer
+    from cs744_ddp_tpu_torch.utils.metrics import mfu_fields
+
+    trainer = Trainer("vgg11", "single", global_batch=BATCH,
+                      precision=precision, limit_train_batches=2 * WINDOW,
+                      log=lambda s: None)
+    per_image = trainer.step_flops_per_image()
+    report = trainer.step_cost()
+    check(per_image is not None and per_image == report.flops / BATCH,
+          f"obs {precision}: step_flops_per_image {per_image}")
+    window = trainer.train_window()
+    window(0, 0, WINDOW).cpu()          # warm-up steps and the capture
+    before = bnpool.executed_counts()   # synchronizes
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    window(1, 0, WINDOW).cpu()
+    step_s = (time.perf_counter() - t0) / WINDOW
+    peak = torch.cuda.max_memory_allocated()
+    after = bnpool.executed_counts()
+    runs = {k: after[k] - before[k] for k in after}
+    check(runs == variants(precision, 5 * WINDOW),
+          f"obs {precision}: the kernels ran {runs} times in a "
+          f"{WINDOW}-step window")
+    mfu = mfu_fields(BATCH / step_s, per_image)
+    peak_flops = H100_F32_PEAK_FLOPS if precision == "f32" \
+        else H100_BF16_PEAK_FLOPS
+    attr = attribute(report, measured_s=step_s, peak_flops=peak_flops,
+                     mem_report=SimpleNamespace(peak_bytes=peak))
+    print(f"[obs] vgg11 {precision} single, batch {BATCH}: "
+          f"step_flops_per_image {per_image:.0f}; steady step "
+          f"{1e3 * step_s:.3f} ms (one {WINDOW}-step window of replays); "
+          f"mfu_fields {mfu}; attribute (peak {peak_flops:.4g}) {attr}; "
+          f"bnpool runs on the device in the window {runs}  [{card_line}]")
+    return runs
+
+
+def phase_obs(card_line):
+    """Serving observability and the cost model on the card; see the
+    module docstring.  Returns each kernel variant's runs over the
+    phase."""
+    from cs744_ddp_tpu_torch.obs import AlertEngine, read_run
+    from cs744_ddp_tpu_torch.ops import bnpool
+    from cs744_ddp_tpu_torch.serve import InferenceEngine, cost_model_weights
+
+    t_phase = time.perf_counter()
+    runs_before = bnpool.executed_counts()
+    # The prior, counted on meta tensors before the clean run starts, so
+    # that nothing else runs on the card or the host beside it.
+    engine = InferenceEngine("vgg11", buckets=SERVE_BUCKETS)
+    weights = cost_model_weights(engine)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="obs_smoke_") as tmp:
+        t0 = time.perf_counter()
+        proc, srv, client = obs_cli(tmp, "server", [])
+        try:
+            clean, st = obs_cli_result(proc, srv, "obs clean")
+        finally:
+            kill_cli(proc)
+        t_clean = time.perf_counter() - t0
+        check(clean["alerts"]["fired"] == [],
+              f"obs clean run: alerts fired {clean['alerts']}")
+        prior_file = os.path.join(tmp, "prior_flops.json")
+        with open(prior_file, "w") as f:
+            json.dump(weights, f)
+        # While the drill serves: the clean run's records replayed through
+        # the rules, and its waterfalls (host work only; the drill's
+        # latencies are not reported, only its rules and replies).
+        proc, drill_srv, _ = obs_cli(
+            tmp, "drill", ["--serve-replicas", "2", "--chaos",
+                           "slow_replica:0:0", "--serve-shed", "off",
+                           "--serve-slo-ms", OBS_SLOW_SLO_MS])
+        try:
+            events = read_run(srv)[1]
+            t0 = time.perf_counter()
+            replay = AlertEngine().run(events)
+            tap_us = 1e6 * (time.perf_counter() - t0) / len(events)
+            check(replay == [], f"obs clean run replayed: {replay}")
+            print(f"[obs] cli --serve-frontend --serve-alerts on, 1 "
+                  f"replica, {OBS_REQUESTS} requests at {OBS_RPS} rps "
+                  f"({t_clean:.1f} s): attainment {st['attainment']}, shed "
+                  f"{st['shed']}; alerts fired {clean['alerts']['fired']}, "
+                  f"and none replaying its {len(events)} records "
+                  f"({tap_us:.2f} us a record on this host, "
+                  f"{tap_us * len(events) / OBS_REQUESTS:.1f} us a "
+                  f"request)  ok  [{card_line}]")
+            print(f"[obs] cost_model_weights (GFLOP a dispatch, by "
+                  f"bucket): "
+                  f"{ {b: round(f / 1e9, 4) for b, f in weights.items()} }"
+                  f"  [{card_line}]")
+            obs_waterfalls(srv, client, prior_file, card_line)
+            drill, st = obs_cli_result(proc, drill_srv, "obs slow_replica")
+        finally:
+            kill_cli(proc)
+        served = sum(c["ok"] + c["late"] for c in st["by_tier"].values())
+        last_attrs = {k: v["last_attrs"]
+                      for k, v in drill["alerts"]["by_rule"].items()}
+        check(drill["alerts"]["fired"] == ["SLO_BURN", "STRAGGLER"]
+              and served == OBS_REQUESTS,
+              f"obs slow_replica drill: alerts {drill['alerts']}, "
+              f"{served} served")
+        print(f"[obs] cli --serve-replicas 2 --chaos slow_replica:0:0 "
+              f"--serve-shed off --serve-slo-ms {OBS_SLOW_SLO_MS} (ended "
+              f"{time.perf_counter() - t_phase:.1f} s into the phase): "
+              f"{served} of {OBS_REQUESTS} served; alerts fired "
+              f"{drill['alerts']['fired']} ({last_attrs})  ok  "
+              f"[{card_line}]")
+    for precision in ("f32", "bf16"):
+        obs_attribution(precision, card_line)
+    runs = bnpool.executed_counts()
+    phase = {k: runs[k] - runs_before[k] for k in runs}
+    print(f"[obs] bnpool runs over the phase {phase}; phase obs: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"obs": phase}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--time-only", action="store_true",
@@ -3307,6 +3584,7 @@ def main(argv=None) -> int:
     by_path.update(phase_serve(card_line))
     by_path.update(phase_serve_tier(card_line))
     by_path.update(phase_publish(card_line))
+    by_path.update(phase_obs(card_line))
 
     replaces = {"bnpool_sums": "cs744_ddp_tpu/ops/bnpool_pallas.py:147",
                 "bnpool_dx": "cs744_ddp_tpu/ops/bnpool_pallas.py:184"}
@@ -3346,6 +3624,8 @@ def main(argv=None) -> int:
           f"{BITWISE_STEPS} eager steps; serve and serve_tier: the serving "
           f"phases, which run none; publish: {PUBLISH_EPOCHS} windowed "
           f"epochs of {PUBLISH_STEPS} steps, and serving that runs none; "
+          f"obs: two {WINDOW}-step windows of replays and 3 warm-up "
+          f"steps each in f32 and in bf16; "
           f"window: 3 warm-up steps and graph "
           f"replays, per-step: eager); the bf16 max_abs_err of dx is over "
           f"the "

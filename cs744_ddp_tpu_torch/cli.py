@@ -101,7 +101,13 @@ requests that would miss their deadline (``--serve-shed off``: serves
 them late).  ``--chaos`` takes the replica sites there (``replica_death``,
 ``slow_replica``, ``dispatch_fault``: ``SITE:dispatch:replica``).
 ``--serve-trace-client DIR`` records the load client's trace spans, which
-``tools/trace_waterfall.py`` merges with the server's ``--telemetry-out``.
+``tools/trace_waterfall.py`` (or ``python -m cs744_ddp_tpu_torch.obs.
+aggregate``) merges with the server's ``--telemetry-out``.  With
+``--telemetry-out`` the streaming SLO alert engine (``obs/alerts.py``)
+rides the server telemetry as a tap (``--serve-alerts off``: not), and
+its summary, the rules that fired, lands under ``"alerts"`` in the JSON
+line and the manifest, which ``tools/telemetry_report.py`` renders under
+``== alerts ==``.
 
 ``--publish-dir DIR`` publishes the serving half of the trained state
 (parameters and BN statistics) every ``--publish-every`` epochs as a
@@ -131,7 +137,7 @@ from .data import cifar10, native
 from .elastic import ElasticConfig, ElasticCoordinator, Generation
 from .ft import FTConfig, POLICIES, ChaosPlan, check_sites
 from .models import get_model
-from .obs import NULL, Telemetry, read_run
+from .obs import NULL, AlertEngine, Telemetry, read_run
 from .ops import _build
 from .ops.sgd import SGDConfig
 from .parallel.mesh import (DEFAULT_PORT, destroy_distributed,
@@ -390,6 +396,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "stream for tools/trace_waterfall.py; server "
                          "spans ride --telemetry-out (only with "
                          "--serve-frontend)")
+    sv.add_argument("--serve-alerts", default="on", choices=["on", "off"],
+                    help="attach the streaming SLO alert engine "
+                         "(obs/alerts.py) to the server telemetry; the "
+                         "fired-rule summary lands in the manifest and "
+                         "the output JSON (default on; needs "
+                         "--telemetry-out; only with --serve-frontend)")
     return p.parse_args(argv)
 
 
@@ -638,7 +650,8 @@ def serve_frontend_main(args: argparse.Namespace, telemetry) -> dict:
     socket front-end; replay the seeded tiered trace over a REAL socket at
     each offered load, print ONE JSON line (address, startup, router and
     per-load goodput/attainment stats; with --serve-publish-dir the
-    weight watcher's report under "publish") and return it."""
+    weight watcher's report under "publish", with the alert engine its
+    summary under "alerts") and return it."""
     from .ft import NULL_CHAOS
     from .serve import demo
     from .serve.frontend import FrontendClient, ServingFrontend
@@ -657,6 +670,10 @@ def serve_frontend_main(args: argparse.Namespace, telemetry) -> dict:
                    for i in range(max(1, args.serve_replicas))]
     else:
         devices = [device] * max(1, args.serve_replicas)
+    alerts = None
+    if telemetry.enabled and args.serve_alerts == "on":
+        alerts = AlertEngine(telemetry)
+        telemetry.add_tap(alerts.observe)
     client_tel = None
     if args.serve_trace_client is not None:
         client_tel = Telemetry(args.serve_trace_client)
@@ -719,10 +736,14 @@ def serve_frontend_main(args: argparse.Namespace, telemetry) -> dict:
            "router": router.stats(), "load": stats}
     if watcher is not None:
         out["publish"] = watcher.report()
+    if alerts is not None:
+        out["alerts"] = alerts.summary()
     if telemetry.enabled:
         telemetry.update_manifest({"router": out["router"]})
         if watcher is not None:
             telemetry.update_manifest({"publish": out["publish"]})
+        if alerts is not None:
+            telemetry.update_manifest({"alerts": out["alerts"]})
     print(json.dumps(out))
     return out
 

@@ -2,8 +2,9 @@
 
 The counterpart of the reference package's ``ops/bnpool_pallas.py``.  The
 forward is plain PyTorch; the backward is two hand-written CUDA kernels
-(``csrc/bnpool.cu``) on CUDA tensors and their plain PyTorch version on CPU
-tensors:
+(``csrc/bnpool.cu``) on CUDA tensors, their plain PyTorch version on CPU
+tensors, and one operator each, of the kernels' shapes, on the ``meta``
+tensors the cost model (``analysis/costmodel.py``) counts:
 
   phase 1 (``bnpool_sums``): recompute the pool routing and the ReLU gate
       from the stored BN residual xhat, reduce sum(dy) and sum(dy*xhat)
@@ -219,7 +220,7 @@ def _check_inputs(xhat, dp, channel_vectors, sums=None) -> None:
         if xhat.numel() >= 2 ** 31:
             raise ValueError("the kernels index with 32-bit ints; xhat has "
                              f"{xhat.numel()} elements")
-    elif xhat.device.type != "cpu":
+    elif xhat.device.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {xhat.device}")
 
 
@@ -302,11 +303,38 @@ def _executed(device: torch.device, name: str) -> int:
     return counter.data_ptr() + KERNELS.index(name) * counter.element_size()
 
 
+# The kernels as operators of their own on ``meta`` tensors, defined at the
+# first meta call: the cost model (``analysis/costmodel.py``) counts a
+# step on the meta device, where each kernel must be ONE operator, charged
+# its operands' and results' bytes and none of the plain version's
+# arithmetic, as the reference's cost model charges a Pallas call.
+META_NAMESPACE = "cs744_bnpool"
+_META_LIBRARY: List[torch.library.Library] = []
+
+
+def _meta_op(name: str):
+    if not _META_LIBRARY:
+        lib = torch.library.Library(META_NAMESPACE, "DEF")
+        lib.define("bnpool_sums(Tensor xhat, Tensor dp, Tensor gamma, "
+                   "Tensor beta) -> Tensor")
+        lib.define("bnpool_dx(Tensor xhat, Tensor dp, Tensor gamma, "
+                   "Tensor beta, Tensor inv, Tensor sums) -> Tensor")
+        lib.impl("bnpool_sums", lambda xhat, *_: xhat.new_empty(
+            (2, xhat.shape[1]), dtype=torch.float32), "Meta")
+        lib.impl("bnpool_dx", lambda xhat, *_: torch.empty_like(
+            xhat, memory_format=torch.channels_last), "Meta")
+        _META_LIBRARY.append(lib)
+    return getattr(getattr(torch.ops, META_NAMESPACE), name)
+
+
 def bnpool_sums(xhat, dp, gamma, beta) -> torch.Tensor:
     """Phase 1: [2, C] f32 (sum dy, sum dy*xhat).  CUDA tensors launch the
     kernel once (``launch_counts`` counts it; the kernel counts its runs in
-    ``executed_counts``) or raise; CPU tensors take the plain version."""
+    ``executed_counts``) or raise; CPU tensors take the plain version; meta
+    tensors one operator of the kernel's shapes (``_meta_op``)."""
     _check_inputs(xhat, dp, (gamma, beta))
+    if xhat.is_meta:
+        return _meta_op("bnpool_sums")(xhat, dp, gamma, beta)
     if not xhat.is_cuda:
         return bnpool_sums_reference(xhat, dp, gamma, beta)
     name = kernel_name("bnpool_sums", xhat.dtype)
@@ -332,8 +360,10 @@ def bnpool_sums(xhat, dp, gamma, beta) -> torch.Tensor:
 def bnpool_dx(xhat, dp, gamma, beta, inv, sums) -> torch.Tensor:
     """Phase 2: dx in xhat's dtype, channels_last.  CUDA tensors launch the
     kernel (``launch_counts`` counts it, ``executed_counts`` its runs); CPU
-    tensors take the plain version."""
+    tensors take the plain version; meta tensors one operator."""
     _check_inputs(xhat, dp, (gamma, beta, inv), sums)
+    if xhat.is_meta:
+        return _meta_op("bnpool_dx")(xhat, dp, gamma, beta, inv, sums)
     if not xhat.is_cuda:
         return bnpool_dx_reference(xhat, dp, gamma, beta, inv, sums)
     name = kernel_name("bnpool_dx", xhat.dtype)

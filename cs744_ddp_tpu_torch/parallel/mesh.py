@@ -196,6 +196,13 @@ class Group:
         self._count("all_gather", _nbytes(out))
         all_gather_into(out, t)
 
+    def all_reduce_uncounted(self, t: torch.Tensor) -> None:
+        """Sum ``t`` over the ranks, in place, outside the counts: what
+        every tier means over the ranks besides the gradients (the BN
+        statistics and the loss, ``train/step.py::mean_over_ranks``) is
+        no strategy's collective."""
+        dist.all_reduce(t)
+
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()

@@ -32,9 +32,9 @@ fails raises; nothing falls back to eager or CPU execution.  On the CPU
 What has no counterpart: the reference's warm-start executable cache
 (``serve/cache.py``), since a CUDA graph has no serialized form, so
 ``cache_dir`` is refused and each rung's capture time is the cold start;
-and ``lowered`` / ``lowered_hlo``, the XLA IR of a rung for the program
-auditor, which belong to the port's static analysis (ROADMAP queue 1
-item 6).
+and ``lowered`` / ``lowered_hlo``, the XLA IR of a rung: the port's cost
+model counts a rung's forward on meta tensors instead
+(``scheduler.py::cost_model_weights``).
 """
 
 from __future__ import annotations

@@ -44,10 +44,9 @@ from .scheduler import ServiceModel, SLOScheduler, cost_model_weights
 class EngineReplica:
     """Engine + scheduler pinned to one device.
 
-    ``cost_prior=True`` asks for the cost-model prior
-    (``cost_model_weights``), which raises until the static analysis is
-    ported (ROADMAP queue 1 item 6); the default prior weighs each bucket
-    by its size."""
+    ``cost_prior=True`` weighs each bucket of the scheduler's
+    ``ServiceModel`` by its rung's flops (``cost_model_weights``); the
+    default prior weighs it by its size."""
 
     def __init__(self, index: int, model: str = "vgg11", *,
                  device=None, buckets: Sequence[int] = BUCKETS,

@@ -86,7 +86,7 @@ from .batcher import QueueFull, next_trace_id, smallest_bucket
 # Depth of the per-replica dispatch pipeline: one batch computing on the
 # device plus one staged-and-issued behind it (defined once, by the
 # engine, whose slots bound it; re-exported here as the reference does).
-from .engine import PIPELINE_SLOTS
+from .engine import _DTYPES, PIPELINE_SLOTS
 
 _seq_counter = itertools.count(1)
 
@@ -454,16 +454,23 @@ class ServiceModel:
 
 
 def cost_model_weights(engine, precision: str = "f32") -> Dict[int, float]:
-    """Per-bucket cost-model flops — the static service-time *shape* for
-    ``ServiceModel``.  The reference reads them from its HLO cost report
-    of each rung (``analysis.costmodel`` over ``engine.lowered_hlo``);
-    both belong to the port's static analysis, not ported yet.  The
-    default prior (weights = bucket sizes) needs neither."""
-    raise NotImplementedError(
-        "cost_model_weights needs the static analysis (analysis.costmodel "
-        "and InferenceEngine.lowered_hlo), which comes with ROADMAP queue "
-        "1 item 6; the default ServiceModel prior (weights = bucket "
-        "sizes) needs neither")
+    """Per-bucket cost-model flops, the static service-time *shape* for
+    ``ServiceModel``: each rung's forward (``models/serving.py::
+    make_u8_forward`` at that bucket and precision) counted by
+    ``analysis/costmodel.py`` on a meta twin of the engine's model, with a
+    floor of 1.0."""
+    from ..analysis import costmodel
+    from ..models.serving import make_u8_forward
+    forward = make_u8_forward(costmodel.meta_model(engine.model_name),
+                              _DTYPES[precision])
+    out = {}
+    for b in engine.buckets:
+        images = torch.empty((b, 32, 32, 3), dtype=torch.uint8,
+                             device="meta")
+        labels = torch.empty((b,), dtype=torch.int64, device="meta")
+        rep = costmodel.count(forward, images, labels, name=f"serve_b{b}")
+        out[int(b)] = max(float(rep.flops), 1.0)
+    return out
 
 
 # -- the threaded scheduler shell ------------------------------------------

@@ -488,16 +488,9 @@ class Trainer:
         self.train_step = steplib.make_train_step(
             net, strat, sgd_cfg, augment="host" if host_augment else augment,
             **step_kw)
-        self._host_window_body = steplib.make_step_body(
-            net, strat, sgd_cfg, augment="host_u8", **step_kw) \
-            if host_augment else None
-        # Strong scaling: the windows' body is the microshard step; the
-        # strategy still names the eval and the comm state it carries.
-        self._elastic_body = MicroshardStep(
-            net, sgd_cfg, microshards=self.elastic.microshards,
-            world=self.world, rank=self.rank, group=self.group,
-            augment=augment, seed=seed, compute_dtype=dtype) \
-            if self._strong else None
+        self._window_body = self._make_window_body(
+            net, strat, self.group, shared=self.train_step.body,
+            nonfinite_chaos_steps=self._nf_chaos_steps)
         self.forward_step = steplib.make_forward_step(
             net, self.group, dtype, augment="host" if host_augment else False)
         self.evaluate = steplib.make_eval_window(net, self.group, dtype)
@@ -792,15 +785,13 @@ class Trainer:
                                      dtype=torch.uint8, device=self.device)
                 labels = torch.zeros((WINDOW, per), dtype=torch.int64,
                                      device=self.device)
-                body, buffered = self._host_window_body, True
             else:
                 staged = self._staged_buffers()
                 images, labels = staged.images, staged.labels
-                body, buffered = self._elastic_body or \
-                    self.train_step.body, False
             self._train_window = steplib.TrainWindow(
-                body, self.state, images, labels, group=self.group,
-                ring_capacity=self.metrics_ring, buffered=buffered)
+                self._window_body, self.state, images, labels,
+                group=self.group, ring_capacity=self.metrics_ring,
+                buffered=self.host_augment)
         return self._train_window
 
     def fwd_window(self) -> steplib.FwdWindow:
@@ -2094,6 +2085,73 @@ class Trainer:
             raise ValueError(f"{what} needs at least one full global batch "
                              f"({self.global_batch})")
         return nbatches
+
+    def _make_window_body(self, net, strat, group, shared=None,
+                          **step_kw):
+        """The body the train windows replay, chosen here for the windows
+        (``__init__``) and for the cost model (``step_cost``) alike: under
+        strong scaling the microshard step (the strategy still names the
+        eval and the comm state it carries); with ``host_augment`` a body
+        over the host pipeline's uint8 batches; else ``shared``, the
+        per-step path's body that the windows share, or a body made as
+        that one is."""
+        if self._strong:
+            return MicroshardStep(
+                net, self.sgd_cfg, microshards=self.elastic.microshards,
+                world=self.world, rank=self.rank, group=group,
+                augment=self.augment, seed=self.seed,
+                compute_dtype=self.compute_dtype)
+        if shared is not None and not self.host_augment:
+            return shared
+        return steplib.make_step_body(
+            net, strat, self.sgd_cfg,
+            augment="host_u8" if self.host_augment else self.augment,
+            group=group, seed=self.seed, compute_dtype=self.compute_dtype,
+            nonfinite_guard=self._guard_on, **step_kw)
+
+    def step_cost(self):
+        """The cost model's ``CostReport`` (``analysis/costmodel.py``) of
+        one train step of this rank at the per-rank batch, as the windowed
+        path runs it: the input transform (the counter-keyed augment, or
+        the host path's normalize), forward, backward, the strategy's sync
+        and the rank mean, the guard and the SGD update, under this
+        Trainer's model, precision, tier and world.  Counted on a meta twin
+        of the model (the same zoo model and seed, nothing computed), with
+        a ``CountingGroup`` in place of the process group."""
+        from ..analysis import costmodel
+        net = costmodel.meta_model(self.model_name, self.seed)
+        strat = get_strategy(self.strategy_name, **(
+            {} if self.compress_rank is None
+            else {"compress_rank": self.compress_rank}))
+        group = None if strat is strategies.local \
+            else costmodel.CountingGroup(self.world, self.rank)
+        state = steplib.init_train_state(net, strat)
+        body = self._make_window_body(net, strat, group)
+        b = self.per_rank_batch
+        zero = torch.zeros((), dtype=torch.int64, device="meta")
+        images = torch.empty((b, 32, 32, 3), dtype=torch.uint8,
+                             device="meta")
+        labels = torch.empty((b,), dtype=torch.int64, device="meta")
+        return costmodel.count(
+            body, state, images, labels, zero, zero,
+            name=f"{self.model_name}/{self.strategy_name}/train_step",
+            group=group)
+
+    def step_flops_per_image(self, log: Optional[Callable[[str], None]] = None
+                             ) -> Optional[float]:
+        """FLOPs per trained image of one whole train step (``step_cost``)
+        over the per-rank batch: a report counts one rank's step, which
+        trains ``global_batch // world`` images.  None, with the reason
+        logged (``log`` overrides the trainer's logger), when an operator
+        of the step cannot be counted on meta tensors."""
+        log = log or self.log
+        try:
+            report = self.step_cost()
+        except NotImplementedError as e:
+            log(f"MFU accounting unavailable: the cost model could not "
+                f"count the train step on meta tensors: {e}")
+            return None
+        return report.flops / self.per_rank_batch
 
     def steady_state_throughput(self, max_iters: int = 3 * WINDOW,
                                 window_iters=None) -> Tuple[float, float]:

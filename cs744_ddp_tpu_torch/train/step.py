@@ -206,13 +206,13 @@ def _bn_statistics(model: nn.Module) -> List[torch.Tensor]:
             if name.endswith(("running_mean", "running_var"))]
 
 
-def mean_over_ranks(tensors: Sequence[torch.Tensor], world: int) -> None:
+def mean_over_ranks(tensors: Sequence[torch.Tensor], group: Group) -> None:
     """Replace each tensor by its mean over the ranks, in place, through ONE
-    all-reduce of one flat buffer.  Not a strategy collective: it goes to
-    ``torch.distributed`` directly and stays out of the strategy's count."""
+    all-reduce of one flat buffer.  Not a strategy collective: it stays out
+    of the strategy's count (``Group.all_reduce_uncounted``)."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat)
-    flat.div_(world)
+    group.all_reduce_uncounted(flat)
+    flat.div_(group.world)
     off = 0
     for t in tensors:
         t.copy_(flat[off:off + t.numel()].view_as(t))
@@ -317,7 +317,7 @@ def make_step_body(model: nn.Module, strategy=strategies.local,
                                                  comm)
             loss = loss.detach().reshape(1)
             with torch.no_grad():
-                mean_over_ranks(list(stats) + [loss], group.world)
+                mean_over_ranks(list(stats) + [loss], group)
             loss = loss[0]
         if guard is None:
             if new_comm is not None:
@@ -396,7 +396,7 @@ def make_forward_body(model: nn.Module, *, augment=True,
             labels)
         if group is not None and group.world > 1:
             loss = loss.reshape(1)
-            mean_over_ranks([loss], group.world)
+            mean_over_ranks([loss], group)
             loss = loss[0]
         return loss
 

@@ -109,3 +109,11 @@ class Stopwatch:
     def __exit__(self, *exc):
         self.elapsed = time.time() - self.t0
         return False
+
+
+def mfu_fields(ips_per_chip: float, flops_per_image, **kw) -> dict:
+    """tflops/MFU fields for one card's throughput.  Delegates to
+    ``analysis.costmodel.mfu_fields``, the one copy of the peak constant
+    and the rounding, so the numbers cannot drift between reports."""
+    from ..analysis.costmodel import mfu_fields as _mfu
+    return _mfu(ips_per_chip, flops_per_image, **kw)

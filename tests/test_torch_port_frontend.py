@@ -383,7 +383,9 @@ def test_cli_serve_frontend_end_to_end(capsys, tmp_path, monkeypatch):
                "--serve-load", "400", "--serve-seed", "1",
                "--telemetry-out", str(srv),
                "--serve-trace-client", str(client))
-    assert set(out) == {"address", "startup", "router", "load"}
+    # The alert engine rides --telemetry-out by default (--serve-alerts).
+    assert set(out) == {"address", "startup", "router", "load", "alerts"}
+    assert set(out["alerts"]) == {"fired", "by_rule", "total"}
     assert set(out["startup"]) == {"replica0", "replica1"}
     assert all(r["backend"] == "cpu" for r in out["startup"].values())
     st = out["load"]["400rps"]
@@ -395,6 +397,7 @@ def test_cli_serve_frontend_end_to_end(capsys, tmp_path, monkeypatch):
     assert man["mode"] == "serve-frontend" and man["replicas"] == 2
     assert man["devices"] == ["cpu", "cpu"] and man["pipeline"] is True
     assert man["router"]["routed"] == 24
+    assert man["alerts"] == out["alerts"]
     monkeypatch.syspath_prepend(os.path.join(REPO, "tools"))
     import telemetry_report
     import trace_waterfall

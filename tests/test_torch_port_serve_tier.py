@@ -22,7 +22,8 @@ router), on the CPU, against the reference package's ``serve/``.
     ``dispatch_fault`` (that batch's requests get explicit errors, the
     next batch the serial bits), serial and pipelined.
   * (e) ``EngineReplica()`` is the GPU by default and raises without one;
-    the cost-model prior raises, naming ROADMAP queue 1 item 6.
+    ``cost_model_weights`` gives per-bucket flops, and a replica with the
+    cost-model prior (``cost_prior=True``) starts and serves.
 """
 
 import threading
@@ -684,12 +685,20 @@ def test_chaos_fired_is_counted(state, pool):
 
 # -- (e) the device default and what is not ported ----------------------------
 
-def test_replica_defaults_to_the_gpu_and_cost_prior_raises(state):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        cost_model_weights(None)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        EngineReplica(0, "vggt", buckets=(2,), device="cpu",
-                      cost_prior=True)
+def test_replica_defaults_to_the_gpu_and_cost_prior_raises(state, pool):
+    """Named for what the cost-model prior did before the cost model was
+    ported (it raised); now it gives per-bucket flops and serves."""
+    weights = cost_model_weights(
+        InferenceEngine("vggt", buckets=(2, 4), device="cpu"))
+    assert sorted(weights) == [2, 4] and weights[4] == 2 * weights[2] > 1.0
+    prior = EngineReplica(0, "vggt", buckets=(2, 4), device="cpu",
+                          state=state, cost_prior=True)
+    assert prior.scheduler.svc.weights == weights
+    prior.startup()
+    with prior:
+        reply = prior.scheduler.submit(pool.images[:3], slo_ms=None) \
+            .result(WAIT)
+    assert reply.status == "ok" and reply.logits.shape == (3, 10)
     rep = EngineReplica(0, "vggt", buckets=(2,), device="cpu", state=state)
     assert rep.engine.device.type == "cpu" and rep.startup()["backend"] \
         == "cpu"
