@@ -234,9 +234,11 @@ Phases, in order; any failure exits non-zero:
                bucket, images a dispatch, the median host time of a
                staging.  Then chaos
                through the router: ``dispatch_fault`` (errors only for its
-               batch, the rest bitwise serial), ``slow_replica`` (tier-0
-               requests of 75 ms queued behind the stall shed or late,
-               with reasons), ``replica_death`` (every request ok on the
+               batch, the rest bitwise serial), ``slow_replica`` (each
+               tier-0 request of 75 ms submitted more than its SLO before
+               the stall's end sheds or is late, with reasons; at least
+               one is, in at most 3 tries), ``replica_death`` (every
+               request ok on the
                survivor, each future resolved once, the dead engine's
                in-flight dispatch fenced); then the CLI
                ``--serve-frontend --serve-replicas 2 --telemetry-out D``
@@ -300,10 +302,34 @@ Phases, in order; any failure exits non-zero:
                ``max_memory_allocated`` of the window as its peak), and
                each bnpool kernel run 5 times a step on the device in that
                window;
- 15. report  — the ``kernels`` JSON line (each kernel in f32, with the
+ 15. audit   — static analysis: ``python -m cs744_ddp_tpu_torch.cli
+               --verify-static`` (the lints, the lock graph, the wire
+               schema, the VGG-11 zoo traced on meta tensors and audited,
+               the round-trip certificate, the memory self-check) exits 0
+               and prints ``[audit] CLEAN`` (its wall time printed); then
+               the CLI in this process, VGG-11 f32 ``single``, batch 256,
+               one whole windowed epoch (195 steps and the 80-row tail) and
+               2 eval batches, ``--audit strict --telemetry-out D``: the
+               manifest's ``audit`` clean, ``collective_totals.chain_depth``
+               a number (0), the ``host_round_trips`` counter equal to
+               ``dispatch.epoch_round_trip_bound("window", 195, 20,
+               tail_batch=True, include_eval=True)`` exactly, each bnpool
+               kernel run 5 times a step on the device, the audit's peak
+               (the window's static bound) printed beside
+               ``max_memory_allocated`` over the run above what was held
+               before it, and their ratio, both under
+               ``H100_HBM_CAPACITY_BYTES``; the rendered sections'
+               inputs present (``manifest["audit"]`` with each program's
+               ``peak_mib``; the ``memory`` gauges: the JAX package's
+               ``tools/telemetry_report.py`` renders them in the CPU
+               tests).  Then, on a world-1 NCCL group, ``allreduce`` and
+               ``ddp``: the real ``Group``'s counts, bytes and link record
+               of one eager step and of one replay of the captured step
+               equal to the audit's counted step of the same strategy;
+ 16. report  — the ``kernels`` JSON line (each kernel in f32, with the
                main path's runs, and in bf16, with the VGG-11 bf16 path's;
                ``launches_by_path`` also holds the host, elastic, serve,
-               serve_tier, publish and obs paths' runs), the card's name
+               serve_tier, publish, obs and audit paths' runs), the card's name
                and power limit, and as the last line ``{"ok": true,
                "device": {...}}``.
 
@@ -2763,27 +2789,65 @@ def serve_tier_chaos(replicas, pool, rng, card_line):
           f"of their replica's serial dispatch ({bitwise} bitwise); each "
           f"future resolved once  ok")
     # slow_replica: tier-0 requests queued behind the stall shed or late.
-    at = r0.scheduler._dispatches
-    r0.chaos = ChaosPlan.parse([f"slow_replica:{at}:0"])
-    with r0:
-        first = r0.scheduler.submit(serve_requests(pool, rng, max_b)[0])
-        t_end = time.time() + 60
-        while ("slow_replica", at) not in r0.chaos.fired:
-            check(time.time() < t_end, "serve_tier: slow_replica never fired")
-            time.sleep(0.001)
-        tight = [r0.scheduler.submit(serve_requests(pool, rng, 1)[0],
-                                     tier=0, slo_ms=75.0) for _ in range(8)]
-        p0 = first.result(120)
-        ps = [f.result(120) for f in tight]
-    check(p0.status == "ok" and p0.service_ms >= 1e3 * r0.slow_stall_s
-          and all(p.status in ("shed", "late") for p in ps)
-          and all(p.reason for p in ps if p.status == "shed"),
-          f"serve_tier slow_replica: {p0.status} {p0.service_ms} ms; "
-          f"{[(p.status, p.reason) for p in ps]}")
-    print(f"[serve_tier chaos] slow_replica:{at}:0 ({r0.slow_stall_s} s "
-          f"stall): the stalled dispatch served in {p0.service_ms} ms; 8 "
-          f"tier-0 requests (75 ms SLO) queued behind it: "
-          f"{[(p.status, p.reason) for p in ps]}  ok")
+    # The stall starts when the replica notes the firing and sleeps at
+    # least slow_stall_s; nothing is dispatched before it ends.  A request
+    # whose submit returned more than its SLO before that end cannot meet
+    # its deadline, so it must shed or be late.  One submitted later (the
+    # host paused this thread past the stall) proves nothing either way;
+    # if none of the 8 was provably behind the stall, the scenario runs
+    # again at the next dispatch, at most 3 times.
+    slo_ms = 75.0
+    stall_t0 = {}
+    note = r0._note_chaos
+
+    def stamped_note(site, dispatch_no):
+        stall_t0.setdefault((site, dispatch_no), time.monotonic())
+        note(site, dispatch_no)
+    r0._note_chaos = stamped_note
+    try:
+        for attempt in range(1, 4):
+            at = r0.scheduler._dispatches
+            r0.chaos = ChaosPlan.parse([f"slow_replica:{at}:0"])
+            with r0:
+                first = r0.scheduler.submit(
+                    serve_requests(pool, rng, max_b)[0])
+                t_end = time.time() + 60
+                while ("slow_replica", at) not in r0.chaos.fired:
+                    check(time.time() < t_end,
+                          "serve_tier: slow_replica never fired")
+                    time.sleep(0.001)
+                tight = []
+                for _ in range(8):
+                    f = r0.scheduler.submit(serve_requests(pool, rng, 1)[0],
+                                            tier=0, slo_ms=slo_ms)
+                    tight.append((f, time.monotonic()))
+                p0 = first.result(120)
+                ps = [(f.result(120), t) for f, t in tight]
+            stall_end = stall_t0[("slow_replica", at)] + r0.slow_stall_s
+            behind = [p for p, t in ps if t + slo_ms / 1e3 < stall_end]
+            lead_ms = [round(1e3 * (stall_end - t), 3) for _, t in ps]
+            check(p0.status == "ok"
+                  and p0.service_ms >= 1e3 * r0.slow_stall_s
+                  and all(p.status in ("shed", "late") for p in behind)
+                  and all(p.status in ("ok", "shed", "late") for p, _ in ps)
+                  and all(p.reason for p, _ in ps if p.status == "shed"),
+                  f"serve_tier slow_replica: {p0.status} {p0.service_ms} "
+                  f"ms; {len(behind)} of 8 submitted > {slo_ms} ms before "
+                  f"the stall's end; {[(p.status, p.reason) for p, _ in ps]}"
+                  f", submitted this many ms before its end: {lead_ms}")
+            print(f"[serve_tier chaos] slow_replica:{at}:0 ({r0.slow_stall_s}"
+                  f" s stall, attempt {attempt}): the stalled dispatch served"
+                  f" in {p0.service_ms} ms; 8 tier-0 requests ({slo_ms} ms "
+                  f"SLO), {len(behind)} submitted more than their SLO before "
+                  f"the stall's end: "
+                  f"{[(p.status, p.reason) for p, _ in ps]}  ok")
+            if behind:
+                break
+        check(behind, "serve_tier slow_replica: in 3 attempts no tier-0 "
+                      "request was submitted more than its SLO before the "
+                      "stall's end")
+    finally:
+        r0._note_chaos = note
     # replica_death: failover without a lost or doubled reply; the dead
     # worker's in-flight dispatch fenced before it ends.
     at = r0.scheduler._dispatches + 1
@@ -3537,6 +3601,146 @@ def phase_obs(card_line):
     return {"obs": phase}
 
 
+AUDIT_EVAL = 2
+AUDIT_EPOCH_STEPS = EPOCH_ROWS // BATCH      # 195 full batches and a tail
+
+
+def audit_group_record(strategy, card_line):
+    """One eager step and one replay of the captured step of a world-1
+    NCCL ``Trainer``: the ``Group``'s counts, bytes and links each time
+    against the audit's counted step of ``strategy`` at world 1."""
+    from collections import Counter
+    from cs744_ddp_tpu_torch.analysis import audit, stats
+    from cs744_ddp_tpu_torch.train.loop import Trainer
+
+    program = audit.train_program("vgg11", strategy, "step", world=1,
+                                  global_batch=BATCH, window=WINDOW)
+    counted = audit.trace_program(program)[0].links
+    want_counts = Counter(c.kind for c in counted if c.counted)
+    want_bytes = Counter()
+    for c in counted:
+        if c.counted:
+            want_bytes[c.kind] += c.nbytes
+    trainer = Trainer("vgg11", strategy, global_batch=BATCH,
+                      limit_train_batches=WINDOW, log=lambda s: None)
+    group = trainer.group
+    x = torch.zeros((BATCH, 32, 32, 3), dtype=torch.uint8, device="cuda")
+    y = torch.zeros((BATCH,), dtype=torch.int64, device="cuda")
+    trainer.train_step(trainer.state, x, y)
+    torch.cuda.synchronize()
+    seen = {"eager": (Counter(group.step_counts), Counter(group.step_bytes),
+                      list(group.step_links))}
+    trainer.train_window()(0, 0, 1).cpu()
+    seen["replay"] = (Counter(group.step_counts), Counter(group.step_bytes),
+                      list(group.step_links))
+    for how, (counts, nbytes, links) in seen.items():
+        check(counts == want_counts and nbytes == want_bytes
+              and links == counted,
+              f"audit {strategy} {how}: Group {dict(counts)} "
+              f"{dict(nbytes)} {links[:3]}..., counted {dict(want_counts)} "
+              f"{dict(want_bytes)} {counted[:3]}...")
+    print(f"[audit] {strategy} world-1 NCCL Group, one eager step and one "
+          f"replay: {dict(want_counts)}, {sum(want_bytes.values())} bytes, "
+          f"{len(counted)} records in {stats.collective_chain_depth(counted)}"
+          f" links ({stats.collective_chain_depth(counted, False)} with the "
+          f"BN and loss mean) = the audit's counted step  ok  [{card_line}]")
+
+
+def phase_audit(card_line):
+    """Static analysis on the card; see the module docstring.  Returns
+    each kernel variant's runs over the phase."""
+    from cs744_ddp_tpu_torch import cli
+    from cs744_ddp_tpu_torch.analysis import audit as auditlib
+    from cs744_ddp_tpu_torch.analysis import dispatch
+    from cs744_ddp_tpu_torch.analysis.costmodel import \
+        H100_HBM_CAPACITY_BYTES
+    from cs744_ddp_tpu_torch.obs import read_run
+    from cs744_ddp_tpu_torch.ops import bnpool
+
+    t_phase = time.perf_counter()
+    runs_before = bnpool.executed_counts()
+    t0 = time.perf_counter()
+    out = run_cli(["--verify-static"], "audit --verify-static", timeout=600)
+    wall = time.perf_counter() - t0
+    lines = out.strip().splitlines()
+    summary = json.loads(lines[-1])
+    check(summary["clean"] and lines[-2].startswith("[audit] CLEAN:"),
+          f"audit --verify-static: {lines[-2]} {lines[-1][:2000]}")
+    print(f"[audit] cli --verify-static ({wall:.1f} s): {lines[-2]}; lint "
+          f"findings {summary['lint_findings']}, lock graph "
+          f"{len(summary['lock_graph']['nodes'])} locks "
+          f"{len(summary['lock_graph']['edges'])} edges, memory "
+          f"{summary['memory']}  ok  [{card_line}]")
+
+    with tempfile.TemporaryDirectory(prefix="audit_smoke_") as tmp:
+        run = os.path.join(tmp, "run")
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = bnpool.executed_counts()
+        t0 = time.perf_counter()
+        cli.main(["--strategy", "single", "--limit-eval-batches",
+                  str(AUDIT_EVAL), "--audit", "strict", "--telemetry-out",
+                  run])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        after = bnpool.executed_counts()
+        manifest, events, tsummary = read_run(run)
+    runs = {k: after[k] - before[k] for k in after}
+    from cs744_ddp_tpu_torch.train.step import WARMUP_ITERS
+    want = variants("f32", 5 * (WARMUP_ITERS + AUDIT_EPOCH_STEPS + 1))
+    check(runs == want, f"audit run: kernels ran {runs}, want {want}")
+    audit = manifest.get("audit") or {}
+    programs = audit.get("programs") or {}
+    check(audit.get("clean") and set(programs) == {
+        "train/step/single", "train/window/single",
+        "train/host_window/single", "eval/window"}
+        and all(p.get("peak_mib") for p in programs.values()),
+        f"audit run: manifest audit {audit}")
+    depth = tsummary["gauges"]["collective_totals"]["chain_depth"]
+    check(depth == programs["train/window/single"]["chain_depth"] == 0,
+          f"audit run: chain_depth {depth}")
+    bound = dispatch.epoch_round_trip_bound(
+        "window", AUDIT_EPOCH_STEPS, WINDOW, tail_batch=True,
+        include_eval=True)
+    trips = dispatch.count_runtime_trips(events)
+    check(dispatch.total_runtime_trips(events) == sum(trips.values())
+          == bound, f"audit run: round trips {trips}, bound {bound}")
+    check(any(e.get("kind") == "gauge" and e.get("name") == "memory"
+              for e in events), "audit run: no memory gauge")
+    # The certificate the manifest rounds to MiB, in bytes.
+    static = auditlib.trace_program(auditlib.train_program(
+        "vgg11", "single", "window", world=1, global_batch=BATCH,
+        window=WINDOW))[0].mem.peak_bytes
+    check(round(static / 2**20, 3) ==
+          programs["train/window/single"]["peak_mib"],
+          f"audit run: static peak {static} B, manifest "
+          f"{programs['train/window/single']}")
+    check(peak < H100_HBM_CAPACITY_BYTES
+          and static < H100_HBM_CAPACITY_BYTES,
+          f"audit run: max_memory_allocated {peak}, static {static}")
+    print(f"[audit] cli --audit strict --telemetry-out, vgg11 f32 single, "
+          f"one windowed epoch ({AUDIT_EPOCH_STEPS} steps and the tail) "
+          f"and {AUDIT_EVAL} eval batches ({wall:.1f} s): audit clean over "
+          f"{sorted(programs)}; chain_depth {depth}; host round trips "
+          f"{trips} = bound {bound}; bnpool runs {runs}; static peak of "
+          f"train/window/single {static} B "
+          f"({static / 2**20:.3f} MiB) against max_memory_allocated "
+          f"{peak - held} B ({(peak - held) / 2**20:.3f} MiB) above the "
+          f"{held} B held before the run: measured / static "
+          f"{(peak - held) / static:.4f}; both under "
+          f"{H100_HBM_CAPACITY_BYTES} B  ok  [{card_line}]")
+    for strategy in ("allreduce", "ddp"):
+        audit_group_record(strategy, card_line)
+    runs = bnpool.executed_counts()
+    phase = {k: runs[k] - runs_before[k] for k in runs}
+    print(f"[audit] bnpool runs over the phase {phase}; phase audit: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"audit": phase}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--time-only", action="store_true",
@@ -3585,6 +3789,7 @@ def main(argv=None) -> int:
     by_path.update(phase_serve_tier(card_line))
     by_path.update(phase_publish(card_line))
     by_path.update(phase_obs(card_line))
+    by_path.update(phase_audit(card_line))
 
     replaces = {"bnpool_sums": "cs744_ddp_tpu/ops/bnpool_pallas.py:147",
                 "bnpool_dx": "cs744_ddp_tpu/ops/bnpool_pallas.py:184"}
@@ -3625,7 +3830,10 @@ def main(argv=None) -> int:
           f"phases, which run none; publish: {PUBLISH_EPOCHS} windowed "
           f"epochs of {PUBLISH_STEPS} steps, and serving that runs none; "
           f"obs: two {WINDOW}-step windows of replays and 3 warm-up "
-          f"steps each in f32 and in bf16; "
+          f"steps each in f32 and in bf16; audit: the audited CLI epoch "
+          f"(3 warm-up steps, {AUDIT_EPOCH_STEPS} replays, the tail) and "
+          f"the Group checks' eager step, 3 warm-up steps and one replay "
+          f"for each of two tiers; "
           f"window: 3 warm-up steps and graph "
           f"replays, per-step: eager); the bf16 max_abs_err of dx is over "
           f"the "

@@ -43,14 +43,14 @@ from __future__ import annotations
 import math
 from collections import Counter
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..models import get_model
 from ..ops import bnpool
-from ..parallel.mesh import Group
+from ..parallel.mesh import Collective, Group, _Waited
 
 # NVIDIA's H100 SXM5 datasheet figures, per card (dense, no sparsity).
 H100_BF16_PEAK_FLOPS = 989.4e12      # bf16 on the tensor cores
@@ -236,20 +236,14 @@ class _Counter(TorchDispatchMode):
         return out
 
 
-class _Done:
-    """The finished work of a counted asynchronous collective."""
-
-    @staticmethod
-    def wait() -> bool:
-        return True
-
-
 class CountingGroup(Group):
     """``parallel.mesh.Group`` for a counted step: the collectives of rank
-    ``rank`` of ``world`` are counted as ``Group`` counts them and also
-    recorded one by one (``sizes``, result bytes in the order they ran)
-    and by collective (``wire``, the uncounted rank mean included); none
-    sends anything, and none needs a process group."""
+    ``rank`` of ``world`` are counted and linked as ``Group`` counts and
+    links them (``step_links``), and also recorded one by one, the
+    uncounted rank mean included, for as long as the group lives
+    (``issued``: each ``Collective`` with what ``clock()`` returned as it
+    was issued, when a caller set it); none sends anything, and none
+    needs a process group."""
 
     def __init__(self, world: int, rank: int = 0):
         # No Group.__init__: it reads the process group.
@@ -258,20 +252,19 @@ class CountingGroup(Group):
         self.total_counts: Counter = Counter()
         self.step_bytes: Counter = Counter()
         self.total_bytes: Counter = Counter()
-        self.sizes: List[int] = []
-        self.wire: Counter = Counter()
+        self.issued: List[Tuple[Collective, int]] = []
+        self.clock: Optional[Callable[[], int]] = None
+        self.reset_step()
 
-    def _record(self, kind: str, nbytes: int) -> None:
-        self.sizes.append(nbytes)
-        self.wire[self.OP_NAMES[kind]] += nbytes
-
-    def _count(self, kind: str, nbytes: int) -> None:
-        super()._count(kind, nbytes)
-        self._record(kind, nbytes)
+    def _record(self, kind: str, nbytes: int, counted: bool,
+                async_op: bool = False) -> None:
+        super()._record(kind, nbytes, counted, async_op)
+        self.issued.append((self.step_links[-1],
+                            self.clock() if self.clock else -1))
 
     def all_reduce(self, t: torch.Tensor, async_op: bool = False):
-        self._count("all_reduce", _nbytes(t))
-        return _Done() if async_op else None
+        self._count("all_reduce", _nbytes(t), async_op)
+        return _Waited(None, self) if async_op else None
 
     def all_reduce_max(self, t: torch.Tensor) -> None:
         self._count("all_reduce_max", _nbytes(t))
@@ -288,7 +281,7 @@ class CountingGroup(Group):
         self._count("all_gather", _nbytes(out))
 
     def all_reduce_uncounted(self, t: torch.Tensor) -> None:
-        self._record("all_reduce", _nbytes(t))
+        self._record("all_reduce", _nbytes(t), False)
 
 
 def meta_model(name: str, seed: int = 0) -> torch.nn.Module:
@@ -305,12 +298,15 @@ def count(fn: Callable, *args, name: str = "program",
     any.  An operator with no meta implementation raises
     ``NotImplementedError``."""
     rep = CostReport(name=name)
-    start = len(group.sizes) if group is not None else 0
-    wire0 = Counter(group.wire) if group is not None else Counter()
+    start = len(group.issued) if group is not None else 0
     with _Counter(rep):
         fn(*args, **kwargs)
     if group is not None and group.world > 1:
-        rep.collective_sizes = group.sizes[start:]
+        issued = [c for c, _ in group.issued[start:]]
+        rep.collective_sizes = [c.nbytes for c in issued]
         rep.wire_bytes = float(sum(rep.collective_sizes))
-        rep.wire_by_collective = dict(group.wire - wire0)
+        wire: Counter = Counter()
+        for c in issued:
+            wire[Group.OP_NAMES[c.kind]] += c.nbytes
+        rep.wire_by_collective = dict(wire)
     return rep

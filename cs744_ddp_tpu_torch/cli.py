@@ -33,6 +33,10 @@ GPU, with the reference training script's print schedule.
     # watching the directory hot-swaps each version between dispatches:
     python -m cs744_ddp_tpu_torch.cli --epochs 3 --publish-dir pub
     python -m cs744_ddp_tpu_torch.cli --serve-frontend --serve-publish-dir pub
+    # static analysis (no card needed): every analyzer, or the zoo audit:
+    python -m cs744_ddp_tpu_torch.cli --verify-static
+    python -m cs744_ddp_tpu_torch.cli --audit-zoo --telemetry-out zoo
+    python -m cs744_ddp_tpu_torch.cli --audit strict --telemetry-out run
 
 Each epoch is trained in 20-step windows, on the card as replays of one
 captured CUDA graph of the step, with one device-to-host fetch per window
@@ -108,6 +112,19 @@ rides the server telemetry as a tap (``--serve-alerts off``: not), and
 its summary, the rules that fired, lands under ``"alerts"`` in the JSON
 line and the manifest, which ``tools/telemetry_report.py`` renders under
 ``== alerts ==``.
+
+``--audit warn|strict`` traces the programs the run will dispatch (the
+strategy's eager step, the window's captured step on both augment paths,
+the eval; under ``--serve-demo`` the serving ladder) once on meta tensors
+and certifies each (``analysis/audit.py``) before any step: the report is
+printed and joins the manifest, and ``strict`` exits 2 on an unwaived
+finding (``--audit-waive RULE[@GLOB]``).  ``--audit-zoo`` audits every
+strategy's programs, the eval and the ladder at ``--serve-buckets`` and
+exits (with ``--telemetry-out``, ``manifest["attribution"]`` too);
+``--verify-static`` runs every static analyzer (the lint, the lock graph,
+the wire schema, the zoo audit, the round-trip certificate, the memory
+self-check), prints ``[verify-static]``/``[audit]`` lines and one summary
+JSON, and exits 2 on any finding.  Neither needs a card.
 
 ``--publish-dir DIR`` publishes the serving half of the trained state
 (parameters and BN statistics) every ``--publish-every`` epochs as a
@@ -402,6 +419,43 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "fired-rule summary lands in the manifest and "
                          "the output JSON (default on; needs "
                          "--telemetry-out; only with --serve-frontend)")
+    au = p.add_argument_group(
+        "static analysis (analysis/)",
+        "program audit: each program the run dispatches traced once on "
+        "meta tensors and certified (collective contract per strategy, "
+        "dtype leaks, in-place state, peak memory, host syncs, baked "
+        "constants, the uint8 ingest edge) before any step runs; results "
+        "land in the telemetry manifest")
+    au.add_argument("--audit", default="off",
+                    choices=["off", "warn", "strict"],
+                    help="audit the programs this run will dispatch "
+                         "(train: the configured strategy's step, window "
+                         "and host window + eval; --serve-demo: the bucket "
+                         "ladder). warn prints findings and continues; "
+                         "strict exits 2 on any unwaived finding")
+    au.add_argument("--audit-zoo", action="store_true",
+                    help="audit the FULL program zoo (all 8 strategies x "
+                         "3 train paths, eval, the serving ladder at "
+                         "--serve-buckets) at world --num-devices (default "
+                         "4) and exit without training; with "
+                         "--telemetry-out also the static cost-model "
+                         "attribution; combine with --audit strict for the "
+                         "CI gate")
+    au.add_argument("--audit-waive", action="append", default=None,
+                    metavar="RULE[@GLOB]",
+                    help="waive an audit rule, optionally only for "
+                         "programs matching a glob, e.g. "
+                         "baked-constants@serve/* (repeatable); waived "
+                         "findings are reported but don't fail strict")
+    au.add_argument("--verify-static", action="store_true",
+                    help="run the whole-repo static verification gate and "
+                         "exit: the port's lints, the lock-order deadlock "
+                         "detector, wire-protocol schema conformance "
+                         "against serve/wire.py, the full program-zoo "
+                         "audit (with the peak-memory certificate against "
+                         "the H100's 80 GB), the static host-round-trip "
+                         "certificate and the memory self-check; prints a "
+                         "JSON summary, exits 2 on any finding")
     return p.parse_args(argv)
 
 
@@ -456,6 +510,119 @@ def _finish_telemetry(telemetry, args: argparse.Namespace,
     telemetry.finalize(global_batch=args.batch_size)
 
 
+def _apply_audit(args: argparse.Namespace, telemetry, result) -> None:
+    """Print an audit's report, record it in the run manifest (enabled
+    recorders only), and exit 2 under ``--audit strict`` when an unwaived
+    finding remains."""
+    from .analysis import audit as auditlib
+    for line in result.format_lines():
+        print(line)
+    auditlib.record_audit(telemetry, result)
+    if args.audit == "strict" and not result.clean:
+        raise SystemExit(2)
+
+
+def audit_training(args: argparse.Namespace) -> dict:
+    """``--audit`` on a training run: the configured strategy's three train
+    programs and the eval, at the run's world, model, batch and
+    precision, before any process trains; the summary each rank 0 adds
+    to its manifest (``_train``)."""
+    from .analysis import audit as auditlib
+    world = args.resume_world or args.num_nodes * (args.num_devices or 1)
+    result = auditlib.audit_zoo(
+        model=args.model, global_batch=args.batch_size,
+        precision=args.precision, strategies=(args.strategy,),
+        num_devices=world, waive=args.audit_waive or (),
+        metrics_ring=args.metrics_ring != 0)
+    _apply_audit(args, NULL, result)
+    return result.summary()
+
+
+def audit_main(args: argparse.Namespace, telemetry) -> None:
+    """--audit-zoo: certify the whole program matrix and exit.  With an
+    enabled recorder the same calls also get the static cost-model
+    attribution, recorded under ``manifest["attribution"]``: audit and
+    attribution read ONE set of traced programs."""
+    from .analysis import audit as auditlib
+    from .serve import demo
+    collect = telemetry.enabled
+    result = auditlib.audit_zoo(
+        model=args.model, global_batch=args.batch_size,
+        precision=args.precision,
+        serve_buckets=demo.parse_buckets(args.serve_buckets),
+        serve_precision=args.serve_precision,
+        num_devices=args.num_devices, waive=args.audit_waive or (),
+        metrics_ring=args.metrics_ring != 0, collect_costs=collect)
+    if collect:
+        auditlib.record_attribution(telemetry,
+                                    auditlib.zoo_attribution(result))
+    _apply_audit(args, telemetry, result)
+
+
+def verify_static_main(args: argparse.Namespace, telemetry) -> None:
+    """--verify-static: one gate over every static analyzer.  The lints,
+    the lock graph and the wire schema run first (pure AST); then the
+    zoo is traced once and shared by the program audit and the
+    host-round-trip certificate.  The summary is printed as JSON (and
+    recorded in the manifest of an enabled recorder); any finding exits
+    2."""
+    from .analysis import audit as auditlib
+    from .analysis import costmodel, lockgraph, memlife, wire_schema
+    from .analysis import dispatch as dispatchlib
+    from .analysis.lint import REPO_ROOT
+    from .analysis.pylint_rules import DEFAULT_TARGETS, lint_paths
+    from .serve import demo, wire
+    from .utils.metrics import WINDOW
+
+    findings = lint_paths([os.path.join(REPO_ROOT, t)
+                           for t in DEFAULT_TARGETS])
+    graph = lockgraph.build_repo_graph(REPO_ROOT)
+    findings += lockgraph.check_graph(graph)
+    findings += wire_schema.check_wire(REPO_ROOT)
+    result = auditlib.audit_zoo(
+        model=args.model, global_batch=args.batch_size,
+        precision=args.precision,
+        serve_buckets=demo.parse_buckets(args.serve_buckets),
+        serve_precision=args.serve_precision,
+        num_devices=args.num_devices, waive=args.audit_waive or (),
+        metrics_ring=args.metrics_ring != 0)
+    cert = dispatchlib.certify_zoo(result, window=WINDOW,
+                                   nbatches=WINDOW + WINDOW // 4,
+                                   include_eval=True)
+    findings += memlife.check_memory(REPO_ROOT)
+    for f in findings:
+        print(f"[verify-static] {f.rule}: {f.path}:{f.line} {f.message}")
+    for line in result.format_lines():
+        print(line)
+    peaks = {r.program: r.stats.get("peak_mib", 0.0)
+             for r in result.reports}
+    fattest = max(peaks, key=peaks.get) if peaks else None
+    summary = {
+        "clean": not findings and result.clean and cert["clean"],
+        "lint_findings": len(findings),
+        "lock_graph": lockgraph.graph_summary(graph),
+        "wire_schema": wire.schema_summary(),
+        "audit": {"clean": result.clean, "n_programs": len(result.reports),
+                  "n_findings": len(result.findings())},
+        "dispatch": cert,
+        # The zoo's peak against the card's capacity (the peak-memory rule
+        # is what fails "clean"; this is the headline number).
+        "memory": {
+            "budget_mib": round(
+                costmodel.H100_HBM_CAPACITY_BYTES / 2**20, 1),
+            "max_peak_mib": max(peaks.values(), default=0.0),
+            "max_peak_program": fattest,
+        },
+    }
+    print(json.dumps(summary))
+    auditlib.record_audit(telemetry, result)
+    if telemetry.enabled:
+        telemetry.update_manifest({"verify_static": {
+            k: summary[k] for k in ("clean", "lint_findings", "audit")}})
+    if not summary["clean"]:
+        raise SystemExit(2)
+
+
 def _train(args: argparse.Namespace, ft: Optional[FTConfig] = None,
            telemetry=NULL) -> Trainer:
     """Build the Trainer the flags describe (``ft``: the fault-tolerance
@@ -477,6 +644,10 @@ def _train(args: argparse.Namespace, ft: Optional[FTConfig] = None,
         host_augment=args.host_augment,
         elastic=None if args.elastic == "off" else args.elastic,
         telemetry=telemetry)
+    audit = getattr(args, "audit_record", None)
+    if audit is not None and telemetry.enabled:
+        # After the Trainer's manifest write, so that the record merges.
+        telemetry.update_manifest({"audit": audit})
     trainer.run(args.epochs, checkpoint_dir=args.checkpoint_dir,
                 profile_dir=args.profile_dir, publish_dir=args.publish_dir,
                 publish_every=args.publish_every)
@@ -634,6 +805,12 @@ def serve_main(args: argparse.Namespace, telemetry) -> None:
         "max_wait_ms": args.serve_max_wait_ms,
         "requests": args.serve_requests, "seed": args.serve_seed,
     })
+    if args.audit != "off":
+        from .analysis import audit as auditlib
+        _apply_audit(args, telemetry, auditlib.AuditResult(
+            reports=auditlib.audit_serving(
+                engine=engine, precision=args.serve_precision,
+                waive=args.audit_waive or ())))
     startup = engine.startup()
     stats = {}
     for rps in args.serve_load or [20.0]:
@@ -750,6 +927,17 @@ def serve_frontend_main(args: argparse.Namespace, telemetry) -> dict:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
+    if args.verify_static or args.audit_zoo:
+        telemetry = (Telemetry(args.telemetry_out)
+                     if args.telemetry_out is not None else NULL)
+        try:
+            if args.verify_static:
+                verify_static_main(args, telemetry)
+            else:
+                audit_main(args, telemetry)
+        finally:
+            telemetry.finalize()
+        return
     if args.serve_demo or args.serve_frontend:
         if args.serve_cache_dir is not None:
             raise SystemExit("--serve-cache-dir: a CUDA graph has no "
@@ -780,6 +968,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         raise SystemExit("--resume-world requires --elastic (weak|strong): "
                          "without a declared protocol there is no defined "
                          "mapping of saved progress onto a new world size")
+    if args.audit != "off":
+        # Certified before any process trains; strict exits 2 here.
+        args.audit_record = audit_training(args)
     if args.elastic != "off":
         try:                  # and a refused elastic config
             elastic_config(args.elastic, args.batch_size,

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import gc
 from collections import Counter
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -112,6 +112,28 @@ def check_backend(device: torch.device) -> None:
                            f"{device.type} device needs {want}")
 
 
+class Collective(NamedTuple):
+    """One collective of a step, in issue order: its ``Group`` kind, the
+    bytes of its result, its link and whether a strategy count holds it
+    (``all_reduce_uncounted`` is recorded but not counted)."""
+    kind: str
+    nbytes: int
+    link: int
+    counted: bool
+
+
+class _Waited:
+    """An asynchronous collective's work: ``wait()`` also closes the
+    group's open link, so that the next collective starts a new one."""
+
+    def __init__(self, work, group: "Group"):
+        self.work, self.group = work, group
+
+    def wait(self):
+        self.group._open = False
+        return self.work.wait() if self.work is not None else True
+
+
 class Group:
     """The default process group, as the strategies see it: every
     collective a strategy calls goes through one of these methods, which
@@ -120,6 +142,14 @@ class Group:
     (``step_bytes``, ``total_bytes``: what ``all_reduce`` reduced in place,
     the ``world`` tensors ``gather`` collects, what ``scatter`` and
     ``all_gather`` write).
+
+    Each collective since the last ``reset_step()`` is also recorded in
+    issue order (``step_links``, ``Collective`` records) with its LINK: a
+    blocking collective is a link of its own, and asynchronous ones issued
+    one after the other before any of them is waited share one.  The
+    links run one after the other (eager collectives run in issue order),
+    so the step's chain depth is its number of links
+    (``analysis/stats.py::collective_chain_depth``).
 
     The counts are kept on the host, so a step captured in a CUDA graph
     counts its collectives once, at capture; each replay then adds the
@@ -147,29 +177,46 @@ class Group:
         self.total_counts: Counter = Counter()
         self.step_bytes: Counter = Counter()
         self.total_bytes: Counter = Counter()
+        self.reset_step()
 
-    def _count(self, kind: str, nbytes: int) -> None:
+    def _count(self, kind: str, nbytes: int, async_op: bool = False) -> None:
         self.step_counts[kind] += 1
         self.total_counts[kind] += 1
         self.step_bytes[kind] += nbytes
         self.total_bytes[kind] += nbytes
+        self._record(kind, nbytes, True, async_op)
+
+    def _record(self, kind: str, nbytes: int, counted: bool,
+                async_op: bool = False) -> None:
+        if not (async_op and self._open):
+            self._links += 1
+        self._open = async_op
+        self.step_links.append(Collective(kind, nbytes, self._links,
+                                          counted))
 
     def reset_step(self) -> None:
         self.step_counts = Counter()
         self.step_bytes = Counter()
+        self.step_links: List[Collective] = []
+        self._links = 0
+        self._open = False
 
-    def add_replayed(self, step: Counter, step_bytes: Counter) -> None:
+    def add_replayed(self, step: Counter, step_bytes: Counter,
+                     links: Sequence[Collective] = ()) -> None:
         """Count one replay of a captured step whose collectives were
-        ``step``, of ``step_bytes`` result bytes."""
+        ``step``, of ``step_bytes`` result bytes, recorded as ``links``."""
         self.step_counts = Counter(step)
         self.total_counts.update(step)
         self.step_bytes = Counter(step_bytes)
         self.total_bytes.update(step_bytes)
+        self.step_links = list(links)
 
     def all_reduce(self, t: torch.Tensor, async_op: bool = False):
-        """Sum ``t`` over the ranks, in place."""
-        self._count("all_reduce", _nbytes(t))
-        return dist.all_reduce(t, async_op=async_op)
+        """Sum ``t`` over the ranks, in place; with ``async_op`` the work,
+        whose ``wait()`` ends the collectives' shared link."""
+        self._count("all_reduce", _nbytes(t), async_op)
+        work = dist.all_reduce(t, async_op=async_op)
+        return _Waited(work, self) if async_op else work
 
     def all_reduce_max(self, t: torch.Tensor) -> None:
         """Element-wise maximum of ``t`` over the ranks, in place."""
@@ -199,8 +246,10 @@ class Group:
     def all_reduce_uncounted(self, t: torch.Tensor) -> None:
         """Sum ``t`` over the ranks, in place, outside the counts: what
         every tier means over the ranks besides the gradients (the BN
-        statistics and the loss, ``train/step.py::mean_over_ranks``) is
-        no strategy's collective."""
+        statistics and the loss, ``train/step.py::mean_over_ranks``; the
+        eval counts) is no strategy's collective.  ``step_links`` records
+        it."""
+        self._record("all_reduce", _nbytes(t), False)
         dist.all_reduce(t)
 
 

@@ -89,6 +89,7 @@ import torch
 import torch.distributed as dist
 
 from .. import models as model_zoo
+from ..analysis.stats import collective_chain_depth
 from ..data import cifar10, native, sharding
 from ..device import resolve_device, set_f32_parity
 from ..elastic.protocol import (PROTOCOLS, ElasticConfig, flat_meta,
@@ -591,7 +592,9 @@ class Trainer:
         counted and sized by the ``Group`` (``step_counts`` and
         ``step_bytes``; after a replay, the captured step's), their totals,
         and what a compressed tier saves against every f32 gradient byte
-        once.  ``chain_depth`` is None: there is no HLO to read it from."""
+        once.  ``chain_depth`` is the links of the step's strategy
+        collectives (``analysis/stats.py::collective_chain_depth`` over the
+        ``Group``'s record of the step; 0 without a group)."""
         if self._collective_stats_emitted:
             return
         self._collective_stats_emitted = True
@@ -607,9 +610,11 @@ class Trainer:
             self.telemetry.counter(f"collective_{op}_count", entry["count"])
             self.telemetry.counter(f"collective_{op}_result_mib", mib[op])
         total_mib = round(sum(mib.values()), 2)
+        depth = 0 if self.group is None else \
+            collective_chain_depth(self.group.step_links)
         self.telemetry.gauge("collective_totals", {
             "total_count": sum(e["count"] for e in ops.values()),
-            "total_result_mib": total_mib, "chain_depth": None})
+            "total_result_mib": total_mib, "chain_depth": depth})
         grad_mib = sum(p.numel() * 4 for p in
                        self.state.model.parameters()) / 2 ** 20
         sent_mib = sum(e["bytes"] for e in ops.values()) / 2 ** 20

@@ -46,7 +46,6 @@ from typing import (Callable, Dict, Iterator, List, NamedTuple, Optional,
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import torch.nn as nn
 
 from ..data import augment as aug
@@ -448,8 +447,9 @@ class GraphStep:
     the eager step.
 
     ``Group`` counts a collective on the host, which a replay does not
-    reach: each replay adds the captured step's collectives, so that its
-    counts mean "issued to the process group" on either path.  The bnpool
+    reach: each replay adds the captured step's collectives (and sets its
+    link record), so that its counts mean "issued to the process group"
+    on either path.  The bnpool
     kernels count their own runs on the device (``bnpool.executed_counts``);
     their wrappers' host counts see the warm-up and the capture only."""
 
@@ -485,7 +485,9 @@ class GraphStep:
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             self.fn()
         after = self._collectives()
-        self.collectives = tuple(a - b for a, b in zip(after, counts))
+        links = [] if self.group is None else list(self.group.step_links)
+        self.collectives = tuple(a - b for a, b in zip(after, counts)) \
+            + (links,)
         self._rewind(counts)
         self.graph = graph
 
@@ -538,8 +540,15 @@ class _Window:
                                   dtype=torch.float32, device=dev)
         self.step = GraphStep(self._step, self.tensors, group, dev)
 
+    def named_tensors(self) -> Dict[str, torch.Tensor]:
+        """Every tensor the step carries from one step to the next, by
+        name (``GraphStep`` snapshots them; the audit holds each to its
+        storage)."""
+        return {"window/epoch": self.epoch, "window/idx": self.idx,
+                "window/pos": self.pos, "window/losses": self.losses}
+
     def tensors(self) -> List[torch.Tensor]:
-        return [self.epoch, self.idx, self.pos, self.losses]
+        return list(self.named_tensors().values())
 
     def _batch(self) -> Tuple[torch.Tensor, torch.Tensor]:
         i = (self.pos if self.buffered else self.idx).reshape(1)
@@ -608,10 +617,14 @@ class TrainWindow(_Window):
         self.oks = torch.ones_like(self.losses) \
             if self.guarded and self.ring is None else None
 
-    def tensors(self) -> List[torch.Tensor]:
-        ring = [] if self.ring is None else [self.ring.buf, self.ring.count]
-        oks = [] if self.oks is None else [self.oks]
-        return state_tensors(self.state) + super().tensors() + ring + oks
+    def named_tensors(self) -> Dict[str, torch.Tensor]:
+        out = {**named_state_tensors(self.state), **super().named_tensors()}
+        if self.ring is not None:
+            out.update({"ring/buf": self.ring.buf,
+                        "ring/count": self.ring.count})
+        if self.oks is not None:
+            out["window/oks"] = self.oks
+        return out
 
     def _step(self) -> None:
         out = self.body(self.state, *self._batch(), self.epoch, self.idx)
@@ -683,8 +696,9 @@ class FwdWindow(_Window):
         self.buffers = list(model.buffers())
         super().__init__(images, labels, None)
 
-    def tensors(self) -> List[torch.Tensor]:
-        return self.buffers + super().tensors()
+    def named_tensors(self) -> Dict[str, torch.Tensor]:
+        return {**{f"buffer/{i}": b for i, b in enumerate(self.buffers)},
+                **super().named_tensors()}
 
     def _step(self) -> None:
         loss = self.body(*self._batch(), self.epoch, self.idx)
@@ -725,7 +739,7 @@ def make_eval_window(model: nn.Module, group: Optional[Group] = None,
             return loss_sum, correct
         # Counts up to 2**24 are exact in f32.
         both = torch.stack([loss_sum, correct.float()])
-        dist.all_reduce(both)
+        group.all_reduce_uncounted(both)
         return both[0], both[1].long()
 
     return evaluate

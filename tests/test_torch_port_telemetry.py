@@ -523,9 +523,9 @@ def test_world_2_rank_0_writes_every_rank_step_time_and_collectives(
     counts as many as ``allreduce``.  The port counts the calls its
     strategy makes: one per gradient under ``allreduce``, one per bucket
     under ``ddp`` (one 25 MiB bucket holds the narrow VGG's 1.25 MiB); its
-    statistics' mean is one all-reduce outside the ``Group``.  The op's
-    name, the gradients' MiB and the bytes a compressed tier would save
-    agree."""
+    statistics' mean is one all-reduce the ``Group`` records uncounted.
+    The op's name, the gradients' MiB, the chain depth and the bytes a
+    compressed tier would save agree."""
     run_dir = str(tmp_path / "run")
     _cli(tmp_path, "--num-devices", "2", "--strategy", strategy,
          "--nonfinite", "skip", "--limit-train-batches", str(STEPS),
@@ -546,10 +546,13 @@ def test_world_2_rank_0_writes_every_rank_step_time_and_collectives(
     gauges = summary["gauges"]
     want = {"allreduce": N_PARAMS, "ddp": 1}[strategy]
     assert counters["collective_all-reduce_count"] == want
+    # One link a gradient (allreduce) or a bucket (ddp): the chain depth
+    # of the reference's step HLO.
     assert gauges["collective_totals"] == {
-        "total_count": want, "chain_depth": None,
+        "total_count": want, "chain_depth": want,
         "total_result_mib": counters["collective_all-reduce_result_mib"]}
     ref = jtel.summarize_events(_reference_collectives(strategy))
+    assert ref["gauges"]["collective_totals"]["chain_depth"] == want
     assert {k for k in ref["counters"]} == \
         {k for k in counters if k.startswith("collective_")}
     assert ref["counters"]["collective_all-reduce_count"] == \
