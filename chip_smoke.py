@@ -151,7 +151,9 @@ Phases, in order; any failure exits non-zero:
                steps; the CLI (``--num-devices 1 --elastic strong
                --checkpoint-dir D --chaos preempt:25``, then the same
                command without the fault) bitwise an uninterrupted CLI
-               run; with two or more GPUs the CLI at world 2 with
+               run, whose ``--telemetry-out`` directory renders the
+               ``elastic`` section (strong, 4 microshards; rank 0's step
+               time); with two or more GPUs the CLI at world 2 with
                ``--chaos rank_death:25:1``, shrinking to world 1 and
                ending bitwise that uninterrupted world-1 run, and the CLI
                at world ``min(4, count)`` bitwise it too;
@@ -177,7 +179,8 @@ Phases, in order; any failure exits non-zero:
                the gradients' MiB; the f32 run's profiler trace holds the
                bnpool kernels, as many runs of each as the kernels counted
                on the device in that epoch (5 x (3 warm-up steps + 60
-               replays));
+               replays)); each run directory rendered (see "Rendering"
+               below) with 60 steps;
  11. serve   — the serving engine (``serve/``), VGG-11 at full width,
                seed-0 weights, buckets {1, 8, 32, 128, 256}, f32 and bf16:
                the ladder's capture time per rung (the cold start: a CUDA
@@ -197,8 +200,9 @@ Phases, in order; any failure exits non-zero:
                (CUDA events), bucket 256 two in flight against serial,
                ``run_demo`` at 20 and 2000 rps (400 requests); then the
                CLI ``--serve-demo --telemetry-out D`` on the card, its
-               last line and the serving gauges of its run directory; and
-               no bnpool kernel run over the whole phase;
+               last line and the serving gauges of its run directory,
+               rendered with the ``serving`` and ``traces`` sections and
+               no ``slo``; and no bnpool kernel run over the whole phase;
  12. serve_tier — the serving tier (``serve/``: scheduler, replicas,
                router, socket front-end): two VGG-11 f32 ``EngineReplica``s
                at full width, seed-0 weights, buckets {1, 8, 32, 128,
@@ -242,8 +246,9 @@ Phases, in order; any failure exits non-zero:
                survivor, each future resolved once, the dead engine's
                in-flight dispatch fenced); then the CLI
                ``--serve-frontend --serve-replicas 2 --telemetry-out D``
-               on the card, its last line and run directory; and no
-               bnpool kernel run over the whole phase;
+               on the card, its last line and run directory, rendered
+               with the ``slo``, ``pipeline`` and ``waterfall`` sections;
+               and no bnpool kernel run over the whole phase;
  13. publish — train to serve (``publish/``): ``Trainer("vgg11",
                "single", global_batch=256)`` at full width runs 2 epochs
                of 40 windowed steps with ``run(publish_dir=)``, publishing
@@ -273,7 +278,11 @@ Phases, in order; any failure exits non-zero:
                the old version serving bitwise, ``swap_mid_batch`` (the
                racing dispatch wholly on the old version, the next on
                the new, the probe's time on the worker thread printed);
-               and no bnpool kernel run in the serving half;
+               and no bnpool kernel run in the serving half.  Then the
+               training's and the serving half's in-memory recorders,
+               each written to a directory with no ``summary.json``,
+               rendered: both with the ``publish`` section, the training's
+               with its 80 steps;
  14. obs     — serving observability and the cost model: the CLI
                ``--serve-frontend --serve-alerts on --telemetry-out S
                --serve-trace-client C``, one VGG-11 replica on the card,
@@ -294,7 +303,9 @@ Phases, in order; any failure exits non-zero:
                bucket.  The same CLI with two replicas, ``--chaos
                slow_replica:0:0 --serve-shed off --serve-slo-ms 0.01``:
                every request served, and exactly ``SLO_BURN`` and
-               ``STRAGGLER`` fired.  Then the VGG-11 ``single`` train step
+               ``STRAGGLER`` fired.  Both server directories rendered:
+               the drill's ``alerts`` section lists exactly the fired
+               rules, the clean run's has none.  Then the VGG-11 ``single`` train step
                at batch 256 in f32 and bf16: ``step_flops_per_image``
                (``Trainer.step_cost``, the cost model on meta tensors),
                the steady step of one 20-step window of replays,
@@ -318,11 +329,10 @@ Phases, in order; any failure exits non-zero:
                (the window's static bound) printed beside
                ``max_memory_allocated`` over the run above what was held
                before it, and their ratio, both under
-               ``H100_HBM_CAPACITY_BYTES``; the rendered sections'
-               inputs present (``manifest["audit"]`` with each program's
-               ``peak_mib``; the ``memory`` gauges: the JAX package's
-               ``tools/telemetry_report.py`` renders them in the CPU
-               tests).  Then, on a world-1 NCCL group, ``allreduce`` and
+               ``H100_HBM_CAPACITY_BYTES``; the run directory rendered with
+               the ``audit`` section (``CLEAN``, its programs) and the
+               ``memory`` section (the gauges against each program's
+               ``peak_mib``).  Then, on a world-1 NCCL group, ``allreduce`` and
                ``ddp``: the real ``Group``'s counts, bytes and link record
                of one eager step and of one replay of the captured step
                equal to the audit's counted step of the same strategy;
@@ -332,6 +342,18 @@ Phases, in order; any failure exits non-zero:
                serve_tier, publish, obs and audit paths' runs), the card's name
                and power limit, and as the last line ``{"ok": true,
                "device": {...}}``.
+
+Rendering: each run directory above goes through ``python -m
+cs744_ddp_tpu_torch.obs.report DIR`` and then ``DIR --json`` in a process
+of its own: each exits 0 with nothing on stderr; the render holds the
+sections that the phase's records imply (and not those they rule out),
+its ``steps recorded N (S steady)`` line counts the directory's step
+events and the summary's steady steps, and ``--json`` prints
+``summary.json`` (or ``summarize_events`` of the records where the
+directory has none).  One ``[report]`` line a directory gives its
+sections, each command's wall and ``render()``'s alone.  The CPU tests
+hold the module's output equal to the JAX package's
+``tools/telemetry_report.py``, which needs JAX and is not run here.
 
 ``--time-only`` runs phases 1 and 3 and stops.  ``--root DIR`` times the
 kernels of the checkout at DIR instead (for example the parent commit,
@@ -1135,6 +1157,105 @@ def run_cli(args, label, timeout=600):
     """``start_cli`` and ``finish_cli``: the CLI's stdout, or a
     failure."""
     return finish_cli(start_cli(args), label, timeout)
+
+
+# The report's section headers (``obs/report.py``), by a short name.
+REPORT_SECTIONS = {
+    "manifest": "== run manifest ==", "steps": "== steady-state steps ==",
+    "spans": "== spans (total wall clock) ==",
+    "counters": "== counters (final) ==", "serving": "== serving ==",
+    "elastic": "== elastic ==", "audit": "== program audit ==",
+    "memory": "== memory (measured vs certified) ==",
+    "traces": "== traces (request causality) ==",
+    "slo": "== slo (tiered attainment) ==",
+    "publish": "== publish (weight hot-swap) ==",
+    "pipeline": "== dispatch pipeline ==",
+    "waterfall": "== waterfall (distributed traces, this stream) ==",
+    "alerts": "== alerts ==", "gauges": "== gauges (last value) =="}
+
+
+def report_alert_rules(text):
+    """The rule ids a render's ``== alerts ==`` section lists."""
+    lines = text.splitlines()
+    if REPORT_SECTIONS["alerts"] not in lines:
+        return []
+    rules = []
+    for line in lines[lines.index(REPORT_SECTIONS["alerts"]) + 1:]:
+        if not line:
+            break
+        rules.append(line.split()[0])
+    return rules
+
+
+def write_run_dir(tel, run_dir):
+    """An in-memory ``Telemetry``'s manifest (if it has one) and records
+    as a run directory with no ``summary.json``."""
+    from cs744_ddp_tpu_torch.obs.telemetry import atomic_write_json
+    os.makedirs(run_dir)
+    if tel.manifest is not None:
+        atomic_write_json(os.path.join(run_dir, "manifest.json"),
+                          tel.manifest)
+    with open(os.path.join(run_dir, "events.jsonl"), "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in tel.records)
+
+
+def render_run_dir(label, run_dir, sections, absent=(), steps=None):
+    """``python -m cs744_ddp_tpu_torch.obs.report RUN_DIR``, then with
+    ``--json``: each exits 0 with nothing on stderr; the render holds the
+    headers of ``sections`` in order and none of ``absent``; its step line
+    counts the directory's step events (``steps`` of them, when given) and
+    the summary's steady steps; ``--json`` prints ``summary.json``, or
+    ``summarize_events`` of the records where the directory has none.
+    Prints a ``[report]`` line: the headers, each command's wall and the
+    render's alone in this process.  Returns the render."""
+    from cs744_ddp_tpu_torch.obs import read_run, report, summarize_events
+
+    manifest, events, summary = read_run(run_dir)
+    if summary is None:
+        summary = summarize_events(
+            events, global_batch=(manifest or {}).get("global_batch"))
+    nsteps = sum(e.get("kind") == "step" for e in events)
+    check(steps is None or nsteps == steps,
+          f"{label}: {nsteps} step events, want {steps}")
+    out, wall = {}, {}
+    for mode, extra in (("text", []), ("json", ["--json"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "cs744_ddp_tpu_torch.obs.report",
+             run_dir] + extra, capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        wall[mode] = time.perf_counter() - t0
+        check(proc.returncode == 0 and proc.stderr == "",
+              f"{label}: the report {' '.join(extra)} exited "
+              f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        out[mode] = proc.stdout
+    t0 = time.perf_counter()
+    text = report.render(run_dir)
+    alone = time.perf_counter() - t0
+    check(out["text"] == text + "\n",
+          f"{label}: the module's output is not render()'s")
+    found = [line for line in text.splitlines()
+             if line in REPORT_SECTIONS.values()]
+    want = [REPORT_SECTIONS[s] for s in sections]
+    check([h for h in found if h in want] == want
+          and not {REPORT_SECTIONS[s] for s in absent} & set(found),
+          f"{label}: report sections {found}, want {want}, none of "
+          f"{list(absent)}")
+    check(f"  steps recorded         {nsteps} "
+          f"({summary['num_steady_steps']} steady)" in text.splitlines(),
+          f"{label}: no step line of {nsteps} step events, "
+          f"{summary['num_steady_steps']} steady, in\n{text[:3000]}")
+    check(json.loads(out["json"]) == json.loads(json.dumps(summary)),
+          f"{label}: report --json is not the directory's summary")
+    names = [s for h in found for s, v in REPORT_SECTIONS.items() if v == h]
+    kept = os.path.exists(os.path.join(run_dir, "summary.json"))
+    print(f"[report] {label}: python -m cs744_ddp_tpu_torch.obs.report "
+          f"({len(events)} records, {nsteps} steps, "
+          f"{summary['num_steady_steps']} steady"
+          f"{'' if kept else ', no summary.json'}): sections {names}; "
+          f"--json = the summary; wall {wall['text']:.3f} s, --json "
+          f"{wall['json']:.3f} s, render() alone {1e3 * alone:.3f} ms  ok")
+    return text
 
 
 def spawn_world(world, tier, out_dir, card_line, model="vgg11"):
@@ -2060,8 +2181,16 @@ def elastic_cli(card_line):
         out, cut = cli_save(tmp, "cut", one, "elastic CLI resume")
         check("Resumed from mid-epoch checkpoint: epoch 0, step 40" in
               out, f"elastic CLI resume: {out[-2000:]}")
-        _, full = cli_save(tmp, "full", one, "elastic CLI uninterrupted")
+        run_dir = os.path.join(tmp, "run_full")
+        _, full = cli_save(tmp, "full", one + ["--telemetry-out", run_dir],
+                           "elastic CLI uninterrupted")
         n = check_same_save("elastic CLI resume", cut, full)
+        text = render_run_dir("elastic cli --telemetry-out", run_dir, (
+            "manifest", "steps", "spans", "counters", "elastic", "gauges"),
+            steps=ELASTIC_STEPS)
+        check(f"  protocol               strong (microshards {MICROSHARDS})"
+              in text.splitlines() and "    rank 0    x" in text,
+              f"elastic cli: the report's elastic section in\n{text}")
         print(f"[elastic] CLI --num-devices 1 --elastic strong "
               f"--chaos preempt:25: saved at 40; the command again "
               f"resumed there; --save bitwise equal to an uninterrupted "
@@ -2314,6 +2443,9 @@ def phase_telemetry(card_line):
             check("Test set: Average loss" in out.getvalue(),
                   f"{label}: no test line in\n{out.getvalue()[-2000:]}")
             trips, nsteps, summary = check_run_dir(label, run_dir, precision)
+            render_run_dir(label, run_dir, ("manifest", "steps", "spans",
+                                            "counters", "memory", "gauges"),
+                           steps=TELEMETRY_STEPS)
             paths[f"telemetry/cli {precision} ({TELEMETRY_STEPS} steps)"] \
                 = runs
             steady_ms = 1e3 * summary["steady_step_time_s"]["mean"]
@@ -2616,9 +2748,7 @@ def phase_serve(card_line):
               and last["startup"]["backend"] == "cuda"
               and st["completed"] + st["rejected"] == SERVE_CLI_REQUESTS,
               f"serve cli: last line {last}")
-        # What tools/telemetry_report.py's "== serving ==" section renders
-        # (the tool imports the reference package, which this script does
-        # not; tests/test_torch_port_serve.py renders through it).
+        # The "== serving ==" section's inputs, against the last line.
         manifest, events, summary = read_run(tmp)
         lat = {}
         depth = 0
@@ -2638,6 +2768,9 @@ def phase_serve(card_line):
               + ", ".join(f"{b} x{len(v)} p50 {percentile(v, 50):.3f} ms"
                           for b, v in sorted(lat.items()))
               + f", {depth} queue_depth samples  ok")
+        render_run_dir("serve cli --serve-demo", tmp, (
+            "manifest", "steps", "spans", "counters", "serving", "traces",
+            "gauges"), absent=("slo", "alerts"), steps=0)
     runs = bnpool.executed_counts()
     diff = {k: runs[k] - runs_before[k] for k in runs}
     check(not any(diff.values()),
@@ -3001,6 +3134,9 @@ def phase_serve_tier(card_line):
               f"{SERVE_TIER_CLI_REQUESTS} replies at 200 rps, attainment "
               f"{st['attainment']}, routed {last['router']['routed']}; "
               f"{len(events)} events  ok")
+        render_run_dir("serve_tier cli --serve-frontend", tmp, (
+            "manifest", "steps", "spans", "counters", "serving", "traces",
+            "slo", "pipeline", "waterfall", "gauges"), steps=0)
     runs = bnpool.executed_counts()
     diff = {k: runs[k] - runs_before[k] for k in runs}
     check(not any(diff.values()),
@@ -3385,6 +3521,19 @@ def _phase_publish(card_line, tmp):
     serve_runs = {k: runs[k] - runs_serve[k] for k in runs}
     check(not any(serve_runs.values()),
           f"publish: the serving half ran the bnpool kernels {serve_runs}")
+    # The two in-memory recorders, written out as run directories.
+    for name, rec, sections, absent, steps in (
+            ("training", tel_train, ("manifest", "steps", "spans",
+                                     "counters", "memory", "publish",
+                                     "gauges"), ("slo",),
+             PUBLISH_EPOCHS * PUBLISH_STEPS),
+            ("serving", tel, ("steps", "spans", "counters", "serving", "slo",
+                              "publish", "pipeline", "gauges"),
+             ("manifest",), 0)):
+        run_dir = os.path.join(tmp, f"run_{name}")
+        write_run_dir(rec, run_dir)
+        render_run_dir(f"publish {name} records", run_dir, sections,
+                       absent=absent, steps=steps)
     del replicas, ref, r0
     gc.collect()
     phase = {k: runs[k] - runs_before[k] for k in runs}
@@ -3592,6 +3741,19 @@ def phase_obs(card_line):
               f"{served} of {OBS_REQUESTS} served; alerts fired "
               f"{drill['alerts']['fired']} ({last_attrs})  ok  "
               f"[{card_line}]")
+        for name, run_dir, fired in (
+                ("clean", srv, clean["alerts"]["fired"]),
+                ("slow_replica drill", drill_srv, drill["alerts"]["fired"])):
+            alerts = ("alerts",) if fired else ()
+            text = render_run_dir(
+                f"obs {name} server", run_dir,
+                ("manifest", "steps", "spans", "counters", "serving",
+                 "traces", "slo", "pipeline", "waterfall") + alerts
+                + ("gauges",), absent=() if fired else ("alerts",),
+                steps=0)
+            check(report_alert_rules(text) == sorted(fired),
+                  f"obs {name}: the report's alerts "
+                  f"{report_alert_rules(text)}, fired {fired}")
     for precision in ("f32", "bf16"):
         obs_attribution(precision, card_line)
     runs = bnpool.executed_counts()
@@ -3688,6 +3850,9 @@ def phase_audit(card_line):
         peak = torch.cuda.max_memory_allocated()
         after = bnpool.executed_counts()
         manifest, events, tsummary = read_run(run)
+        text = render_run_dir("audit cli --audit strict", run, (
+            "manifest", "steps", "spans", "counters", "audit", "memory",
+            "gauges"))
     runs = {k: after[k] - before[k] for k in after}
     from cs744_ddp_tpu_torch.train.step import WARMUP_ITERS
     want = variants("f32", 5 * (WARMUP_ITERS + AUDIT_EPOCH_STEPS + 1))
@@ -3699,6 +3864,9 @@ def phase_audit(card_line):
         "train/host_window/single", "eval/window"}
         and all(p.get("peak_mib") for p in programs.values()),
         f"audit run: manifest audit {audit}")
+    check(f"  CLEAN: {len(programs)} programs, 0 findings, 0 waived"
+          in text.splitlines(), f"audit run: the report's audit section "
+          f"in\n{text}")
     depth = tsummary["gauges"]["collective_totals"]["chain_depth"]
     check(depth == programs["train/window/single"]["chain_depth"] == 0,
           f"audit run: chain_depth {depth}")

@@ -12,6 +12,14 @@ hand-written CUDA kernels (``ops/csrc/bnpool.cu``) on CUDA tensors and their
 plain PyTorch version on CPU tensors.
 """
 
-from .device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # ``resolve_device`` is imported on first use, so that a module that
+    # needs no torch (the run-directory report, ``obs/report.py``) starts
+    # without loading it.
+    if name == "resolve_device":
+        from .device import resolve_device
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

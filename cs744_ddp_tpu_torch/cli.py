@@ -20,7 +20,7 @@ GPU, with the reference training script's print schedule.
     python -m cs744_ddp_tpu_torch.cli --master HOST --num-nodes 2 --rank 0
     # the run's telemetry, and a torch.profiler trace of its first epoch:
     python -m cs744_ddp_tpu_torch.cli --telemetry-out run --profile-dir prof
-    python tools/telemetry_report.py run
+    python -m cs744_ddp_tpu_torch.obs.report run
     # serve instead of training: a seeded open-loop request trace through
     # the micro-batcher and a ladder of captured CUDA graphs:
     python -m cs744_ddp_tpu_torch.cli --serve-demo --serve-load 20 \
@@ -77,7 +77,8 @@ checkpoint of any world is re-planned onto it).  The last line is
 ``ops/_build.py`` built or found built, and under ``--elastic`` the
 ``elastic_report``), ``events.jsonl`` (step events, spans, counters,
 gauges) and ``summary.json`` (written however the run ends), which
-``tools/telemetry_report.py`` renders.  Under ``--elastic`` each
+``python -m cs744_ddp_tpu_torch.obs.report`` renders (as the reference's
+``tools/telemetry_report.py`` does where JAX is installed).  Under ``--elastic`` each
 generation's rank 0 appends to the same directory and this process writes
 the summary over all of them.  ``--profile-dir DIR`` traces the first
 trained epoch with ``torch.profiler`` into ``DIR/trace_epoch<E>_rank0.json``
@@ -89,8 +90,8 @@ CUDA graph per batch bucket of ``--serve-buckets`` and pipeline slot for
 synthetic request trace at each ``--serve-load`` through the
 micro-batcher, and prints one JSON line, ``{"startup": ..., "demo":
 {"<load>rps": ...}}``; under ``--telemetry-out`` the run directory holds
-the serving spans and gauges, which ``tools/telemetry_report.py`` renders
-under ``== serving ==``.
+the serving spans and gauges, which ``obs.report`` renders under ``==
+serving ==``.
 
 ``--serve-frontend`` serves through the serving tier instead:
 ``--serve-replicas`` engine replicas (replica i on GPU ``i % count``, two
@@ -110,8 +111,8 @@ aggregate``) merges with the server's ``--telemetry-out``.  With
 ``--telemetry-out`` the streaming SLO alert engine (``obs/alerts.py``)
 rides the server telemetry as a tap (``--serve-alerts off``: not), and
 its summary, the rules that fired, lands under ``"alerts"`` in the JSON
-line and the manifest, which ``tools/telemetry_report.py`` renders under
-``== alerts ==``.
+line and the manifest, which ``obs.report`` renders under ``==
+alerts ==``.
 
 ``--audit warn|strict`` traces the programs the run will dispatch (the
 strategy's eager step, the window's captured step on both augment paths,
@@ -326,8 +327,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "(rank 0): manifest.json (run header), events.jsonl "
                         "(per-step events, spans, gauges, counters) and "
                         "summary.json (steady-state percentiles); render "
-                        "with tools/telemetry_report.py.  Off by default "
-                        "(no file written)")
+                        "with python -m cs744_ddp_tpu_torch.obs.report.  "
+                        "Off by default (no file written)")
     p.add_argument("--profile-dir", default=None, metavar="DIR",
                    help="trace the first trained epoch with torch.profiler "
                         "(CPU and CUDA activity) into a Chrome trace JSON "

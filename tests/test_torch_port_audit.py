@@ -24,7 +24,8 @@ reference package.
   * (g) The CLI: ``--audit strict`` exits 2 on a seeded finding,
     ``--verify-static`` gives the reference's summary, a ``--audit`` run
     directory renders under ``== program audit ==`` in
-    ``tools/telemetry_report.py``, and ``chain_depth`` is a number there.
+    ``tools/telemetry_report.py`` (and the port's ``obs.report`` prints
+    the same), and ``chain_depth`` is a number there.
 """
 
 import json
@@ -53,6 +54,7 @@ from cs744_ddp_tpu_torch.train import step as steplib
 from cs744_ddp_tpu_torch.utils.metrics import WINDOW
 
 import torch_dist_worker as worker
+from test_torch_port_report import assert_renders_as_the_tool
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH = 12                  # 320 examples: 26 full batches and 8 rows
@@ -520,6 +522,7 @@ def test_cli_audit_run_directory_renders(tmp_path, capsys):
                           cwd=REPO, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
+    assert_renders_as_the_tool(run, proc.stdout[:-1])   # less print's "\n"
     assert "== program audit ==" in proc.stdout
     assert "CLEAN: 4 programs" in proc.stdout
     assert "== memory (measured vs certified) ==" in proc.stdout

@@ -18,7 +18,8 @@ serve/: frontend, wire, load; obs/tracing.py) and the CLI's
   * (d) The CLI: ``--serve-frontend --device cpu --model vggt
     --serve-replicas 2`` prints the four keys; its run directory and a
     ``--serve-trace-client`` pair rendered by the reference's
-    ``tools/telemetry_report.py`` and ``tools/trace_waterfall.py``;
+    ``tools/telemetry_report.py`` (the port's ``obs.report`` the same)
+    and ``tools/trace_waterfall.py``;
     ``--chaos replica_death`` failing over; the replica sites accepted
     there and refused in training, the publishing sites refused
     everywhere; ``--serve-cache-dir`` refused; without ``--device cpu``
@@ -58,6 +59,7 @@ from cs744_ddp_tpu_torch.serve import (EngineReplica, InferenceEngine,
                                        ServingFrontend, frontend, load, wire)
 
 import torch_dist_worker as worker
+from test_torch_port_report import assert_renders_as_the_tool
 
 tvgg.CFG["VGGT"] = worker.NARROW_VGG
 
@@ -402,6 +404,7 @@ def test_cli_serve_frontend_end_to_end(capsys, tmp_path, monkeypatch):
     import telemetry_report
     import trace_waterfall
     text = telemetry_report.render(str(srv))
+    assert_renders_as_the_tool(srv, text)
     assert "== slo (tiered attainment) ==" in text
     assert "== dispatch pipeline ==" in text
     assert "replica 0" in text and "replica 1" in text

@@ -22,7 +22,8 @@ reference package's.
     ``python -m cs744_ddp_tpu_torch.obs.aggregate --json``.
   * (e) The CLI: ``--serve-frontend --serve-alerts on`` puts the summary in
     the JSON line and the manifest; ``tools/telemetry_report.py`` renders
-    ``== alerts ==``; ``--serve-alerts off`` attaches nothing.
+    ``== alerts ==`` (the port's ``obs.report`` the same);
+    ``--serve-alerts off`` attaches nothing.
 """
 
 import importlib.util
@@ -48,6 +49,7 @@ from cs744_ddp_tpu_torch.serve import EngineReplica, ReplicaRouter
 from cs744_ddp_tpu_torch.serve.frontend import LoopbackClient, ServingFrontend
 
 import torch_dist_worker as worker
+from test_torch_port_report import assert_renders_as_the_tool
 
 tvgg.CFG["VGGT"] = worker.NARROW_VGG
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -362,8 +364,11 @@ def test_cli_serve_alerts(capsys, tmp_path):
         "replica"] == 0
     assert man["alerts"] == out["alerts"]
     text = _tool("telemetry_report").render(srv)
+    assert_renders_as_the_tool(srv, text)
     assert "== alerts ==" in text
     assert "SLO_BURN" in text and "STRAGGLER" in text
     out, man, srv = _cli(capsys, tmp_path, "off")
     assert "alerts" not in out and "alerts" not in man
-    assert "== alerts ==" not in _tool("telemetry_report").render(srv)
+    text = _tool("telemetry_report").render(srv)
+    assert_renders_as_the_tool(srv, text)
+    assert "== alerts ==" not in text

@@ -21,7 +21,8 @@ against the reference package's ``publish/``.
     ``swap_mid_batch``.
   * (f) The CLI's four flags and their refusals, a publishing training run
     and a ``--serve-publish-dir`` tier, rendered by
-    ``tools/telemetry_report.py`` under ``== publish ==``.
+    ``tools/telemetry_report.py`` under ``== publish ==`` (the port's
+    ``obs.report`` the same).
 """
 
 import os
@@ -59,6 +60,7 @@ from cs744_ddp_tpu_torch.serve import (EngineReplica, InferenceEngine,
 from cs744_ddp_tpu_torch.train import loop
 
 import torch_dist_worker as worker
+from test_torch_port_report import assert_renders_as_the_tool
 
 jvgg.CFG["VGGT"] = worker.NARROW_VGG
 tvgg.CFG["VGGT"] = worker.NARROW_VGG
@@ -646,6 +648,7 @@ def test_cli_train_publishes_and_the_tier_installs(tmp_path, capsys,
     assert "Published weights v1 " in out and read_latest(pub) == {
         "version": 1, "file": "v000001.dup.ccwb"}
     text = telemetry_report.render(train_run)
+    assert_renders_as_the_tool(train_run, text)
     assert "== publish (weight hot-swap) ==" in text
     assert "publish_count" in text and "publish_chaos_injected" in text
     cli.main(["--serve-frontend", "--device", "cpu", "--model", "vggt",
@@ -660,6 +663,7 @@ def test_cli_train_publishes_and_the_tier_installs(tmp_path, capsys,
     manifest, _, _ = read_run(serve_run)
     assert manifest["publish"]["installed_version"] == 1
     text = telemetry_report.render(serve_run)
+    assert_renders_as_the_tool(serve_run, text)
     assert "== publish (weight hot-swap) ==" in text
     assert "publish_installed" in text and "swap latency" in text
     assert "installed 1" in text
@@ -679,6 +683,7 @@ def test_telemetry_report_publish_section(tmp_path, monkeypatch):
     assert watcher.poll_once() == "installed"
     tel.finalize()
     text = telemetry_report.render(str(run))
+    assert_renders_as_the_tool(run, text)
     assert "== publish (weight hot-swap) ==" in text
     assert "publish_count" in text and "publish_installed" in text
     assert "swap latency" in text and "weights_installed" in text

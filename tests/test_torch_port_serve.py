@@ -27,7 +27,8 @@ reference package's ``serve/``.
   * (f) ``install_weights``: in place, equal to a fresh engine on the new
     state, a mismatched state refused, ``weights_version`` bumped.
   * (g) The CLI's ``--serve-demo`` and ``serve.demo``'s main; the run
-    directory rendered by the reference's ``tools/telemetry_report.py``.
+    directory rendered by the reference's ``tools/telemetry_report.py``
+    and, the same, by the port's ``obs.report``.
   * (h) ``device=None`` is the GPU, and raises without one.
 """
 
@@ -60,6 +61,7 @@ from cs744_ddp_tpu_torch.serve import (BUCKETS, PIPELINE_SLOTS,
 from cs744_ddp_tpu_torch.serve import batcher, demo
 
 import torch_dist_worker as worker
+from test_torch_port_report import assert_renders_as_the_tool
 
 jvgg.CFG["VGGT"] = worker.NARROW_VGG
 tvgg.CFG["VGGT"] = worker.NARROW_VGG
@@ -538,6 +540,7 @@ def test_cli_serve_demo_end_to_end(capsys, tmp_path, monkeypatch):
     monkeypatch.syspath_prepend(os.path.join(REPO, "tools"))
     import telemetry_report
     text = telemetry_report.render(str(tmp_path))
+    assert_renders_as_the_tool(tmp_path, text)
     assert "== serving ==" in text
     assert "request latency by bucket" in text
     man = json.loads((tmp_path / "manifest.json").read_text())

@@ -19,7 +19,8 @@ reference package's.
   * (e) ``--nonfinite skip`` with ``nonfinite_grad`` and ``preempt``
     chaos: the same fault counters at the same steps as the reference.
   * (f) The CLI's run directory, rendered by the reference's
-    ``tools/telemetry_report.py``, also without ``summary.json``;
+    ``tools/telemetry_report.py`` and, the same, by the port's
+    ``obs.report``, also without ``summary.json``;
     (g) ``--profile-dir`` writes a Chrome trace.
   * (h) World 2 over gloo (the CLI's ranks): rank 0 alone writes, every
     rank's step time is there, and the collective counters against the
@@ -58,6 +59,7 @@ from cs744_ddp_tpu_torch.ops import sgd as tsgd
 from cs744_ddp_tpu_torch.train import loop
 
 import torch_dist_worker as worker
+from test_torch_port_report import assert_renders_as_the_tool
 
 LR = 0.01
 BATCH = 8
@@ -443,6 +445,7 @@ def test_cli_run_directory_renders_in_the_reference_report(tmp_path,
             os.unlink(os.path.join(run_dir, "summary.json"))
         assert tool.main([run_dir]) == 0
         text = capsys.readouterr().out
+        assert_renders_as_the_tool(run_dir, text[:-1])   # less print's "\n"
         assert tool.main([run_dir, "--json"]) == 0
         renders[label] = (text, json.loads(capsys.readouterr().out))
     for text, js in renders.values():
