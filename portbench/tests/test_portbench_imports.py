@@ -1,0 +1,56 @@
+"""Nothing of the benchmark loads JAX or the JAX package: in a fresh
+interpreter that imports the harness and every metric file, and in the
+sources, each module's top-level name (before the first dot) compared
+whole, since the port's own name begins with the JAX package's."""
+
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "cs744_ddp_tpu", "bench", "tools"}
+
+
+def test_fresh_interpreter_loads_no_jax():
+    code = (
+        "import sys, json\n"
+        "import portbench.run, portbench.calibrate, portbench.faults\n"
+        "import portbench.reference.steps\n"
+        "portbench.run.load_metrics()\n"
+        "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT.parent,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    tops = set(json.loads(out.strip().splitlines()[-1]))
+    assert "portbench" in tops
+    assert not tops & FORBIDDEN, tops & FORBIDDEN
+
+
+def test_sources_import_no_jax():
+    found = []
+    for path in sorted(ROOT.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and not node.level:
+                names = [node.module]
+            else:
+                continue
+            found += [(path.name, n) for n in names
+                      if n.split(".")[0] in FORBIDDEN]
+    assert found == []
+
+
+def test_reference_imports_nothing_of_the_program():
+    for path in sorted((ROOT / "reference").glob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom) and not node.level:
+                assert node.module.split(".")[0] in {
+                    "__future__", "typing", "numpy", "torch", "contextlib"}, \
+                    (path.name, node.module)
+            elif isinstance(node, ast.Import):
+                for a in node.names:
+                    assert a.name.split(".")[0] in {
+                        "numpy", "torch", "contextlib"}, (path.name, a.name)
