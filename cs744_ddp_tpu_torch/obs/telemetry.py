@@ -33,6 +33,11 @@ run without ``--telemetry-out`` performs zero file writes and zero per-step
 allocations (hot call sites guard on ``telemetry.enabled`` so even the
 argument dicts are never built).  Nothing here touches the device: a
 record is built from values the host already holds.
+
+Every span, of either recorder and on every rank, is also a range named
+``cs744.<name>`` on ``torch.profiler``'s timeline while a profiler records
+(``profiler_range``), so that a device trace can put each idle gap down to
+what the host was doing.  The ranges add no record to the JSONL stream.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from __future__ import annotations
 import json
 import os
 import subprocess
+import sys
 import threading
 import time
 from typing import Any, Dict, IO, List, Optional, Tuple
@@ -156,9 +162,29 @@ class _NullSpan:
 
 _NULL_SPAN = _NullSpan()
 
+PROFILER_PREFIX = "cs744."
+
+
+def profiler_range(name: str):
+    """A range named ``cs744.<name>`` on ``torch.profiler``'s timeline while
+    a profiler records on this process, else the shared no-op span: one
+    flag check when none does.
+
+    The range is a host-side record only (``_RecordFunctionFast``, a plain
+    function scope): ``torch.profiler.record_function``'s user scope also
+    leaves a shadow event on the device's timeline, which a sum of the
+    card's busy time would count as a kernel.  torch is reached through
+    ``sys.modules`` and never imported here, so the run-directory report
+    still loads without it."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch._C._autograd._profiler_enabled():
+        return _NULL_SPAN
+    return torch._C._profiler._RecordFunctionFast(PROFILER_PREFIX + name)
+
 
 class NullTelemetry:
-    """The disabled recorder: every method is a no-op, ``enabled`` is False.
+    """The disabled recorder: every method is a no-op, ``enabled`` is False;
+    ``span`` is only ``profiler_range``, a no-op while no profiler records.
 
     Stateless (``__slots__ = ()``): recording through it cannot grow any
     per-step list, and it never touches the filesystem.  Hot call sites
@@ -178,7 +204,7 @@ class NullTelemetry:
         pass
 
     def span(self, name: str, **attrs):
-        return _NULL_SPAN
+        return profiler_range(name)
 
     def span_event(self, name: str, t0: float, dur_s: float,
                    **attrs) -> None:
@@ -207,21 +233,25 @@ NULL = NullTelemetry()
 
 
 class _Span:
-    __slots__ = ("_tel", "name", "attrs", "t0")
+    __slots__ = ("_tel", "name", "attrs", "t0", "_range")
 
     def __init__(self, tel: "Telemetry", name: str, attrs: Dict[str, Any]):
         self._tel = tel
         self.name = name
         self.attrs = attrs
         self.t0 = 0.0
+        self._range = _NULL_SPAN
 
     def __enter__(self):
+        self._range = profiler_range(self.name)
+        self._range.__enter__()
         self._tel._push(self.name)
         self.t0 = time.time()
         return self
 
     def __exit__(self, exc_type, *exc):
         dur = time.time() - self.t0
+        self._range.__exit__(exc_type, *exc)
         parent, depth = self._tel._pop()
         rec = {"kind": "span", "name": self.name, "t": self.t0,
                "dur_s": dur, "depth": depth}

@@ -101,6 +101,7 @@ from ..ft import (NULL_CHAOS, ChaosError, FTConfig, NonFiniteError, POLICIES,
                   check_sites)
 from ..ft import supervisor as ftsup
 from ..obs import NULL, git_sha, ringbuf
+from ..obs.telemetry import profiler_range
 from ..ops import sgd
 from ..parallel import Group, get_strategy, initialize_distributed
 from ..parallel import strategies
@@ -496,6 +497,11 @@ class Trainer:
             net, self.group, dtype, augment="host" if host_augment else False)
         self.evaluate = steplib.make_eval_window(net, self.group, dtype)
         self.host_round_trips = 0
+        # Eager training steps (the ragged tail, the per-step path) and
+        # stagings of an epoch's batches: with the window's replays and
+        # captures, what ``trace_counts`` reports.
+        self.eager_steps = 0
+        self.restages = 0
         self._staged_train = None       # (cache key, StagedEpoch)
         self._staged_eval = None
         self._train_window: Optional[steplib.TrainWindow] = None
@@ -731,6 +737,7 @@ class Trainer:
                None if tail_cols is None else tail_cols.tobytes())
         if self._staged_train is not None and self._staged_train[0] == key:
             return self._staged_train[1]
+        self.restages += 1
         nfull, per = cols.shape
         images = torch.from_numpy(
             split.images[cols.reshape(-1)].reshape(nfull, per, 32, 32, 3))
@@ -820,6 +827,20 @@ class Trainer:
             done.record(torch.cuda.current_stream(t.device))
             done.synchronize()
         return t.cpu().numpy()
+
+    def trace_counts(self) -> Dict[str, int]:
+        """What the host has sent the device so far, as plain counts (no
+        telemetry record): device-to-host fetches, the train window's
+        graph replays (its eager steps on the CPU) and captures, eager
+        training steps, and stagings of an epoch.  Each only grows; a
+        caller takes the difference over the span it measures."""
+        step = None if self._train_window is None \
+            else self._train_window.step
+        return {"host_round_trips": self.host_round_trips,
+                "replays": 0 if step is None else step.replays,
+                "captures": 0 if step is None else step.captures,
+                "eager_steps": self.eager_steps,
+                "restages": self.restages}
 
     def _count_round_trip(self, site: str, **attrs) -> None:
         """The telemetry of one ``_fetch`` of training or eval, tagged with
@@ -950,6 +971,7 @@ class Trainer:
     def _step_fetch(self, x: torch.Tensor, y: torch.Tensor, epoch: int,
                     idx: int) -> Tuple[float, Optional[float]]:
         """One eager step; its loss and guard flag in ONE fetch."""
+        self.eager_steps += 1
         out = self.train_step.with_ok(self.state, x, y, epoch, idx)
         if out.ok is None:
             loss, ok = self._fetch(out.loss), None
@@ -1654,7 +1676,11 @@ class Trainer:
                               start_step: int) -> WindowedTimers:
         timers = WindowedTimers(self.log, telemetry=self.telemetry,
                                 epoch=epoch)
-        staged = self._stage_train_epoch(epoch)
+        # Profiler ranges (no telemetry record) split the epoch's host time
+        # into the staging, each window's dispatch (its fills and graph
+        # launches), its fetch and the host's work after it, and the tail.
+        with profiler_range("stage_epoch"):
+            staged = self._stage_train_epoch(epoch)
         window = self.train_window()
         nbatches = staged.images.shape[0]
         start = start_step
@@ -1668,33 +1694,39 @@ class Trainer:
             with self.telemetry.span("train_window",
                                      strategy=self.strategy_name,
                                      start=start, batches=w):
-                fetched = self._fetch(window(epoch, start, w))
-            per_iter = (time.time() - t0) / w
-            self._count_round_trip(self._window_site(), epoch=epoch)
-            cols = window.columns(fetched, start, w)
-            self._record_window(timers, cols, per_iter)
-            if self._nf_chaos_steps and \
-                    self.chaos.fire_range("nonfinite_grad", start, start + w):
-                self._record_chaos("nonfinite_grad", next(
-                    s for s in self._nf_chaos_steps if start <= s < start + w))
-            start += w
-            if cols.ok is not None:
-                self._handle_nonfinite(cols.ok, epoch)
-            self._rank_boundary(epoch, start, per_iter)
-            emit_memory_gauges(self.telemetry, self.device, epoch=epoch,
-                               step=start)
-            self._check_preempt(epoch, start)
+                with profiler_range("window_dispatch"):
+                    out = window(epoch, start, w)
+                with profiler_range("window_fetch"):
+                    fetched = self._fetch(out)
+            with profiler_range("after_window"):
+                per_iter = (time.time() - t0) / w
+                self._count_round_trip(self._window_site(), epoch=epoch)
+                cols = window.columns(fetched, start, w)
+                self._record_window(timers, cols, per_iter)
+                if self._nf_chaos_steps and self.chaos.fire_range(
+                        "nonfinite_grad", start, start + w):
+                    self._record_chaos("nonfinite_grad", next(
+                        s for s in self._nf_chaos_steps
+                        if start <= s < start + w))
+                start += w
+                if cols.ok is not None:
+                    self._handle_nonfinite(cols.ok, epoch)
+                self._rank_boundary(epoch, start, per_iter)
+                emit_memory_gauges(self.telemetry, self.device, epoch=epoch,
+                                   step=start)
+                self._check_preempt(epoch, start)
         if staged.tail is not None and start_step <= nbatches:
-            t0 = time.time()
-            if self._nf_chaos_steps and \
-                    self.chaos.fire("nonfinite_grad", nbatches):
-                self._record_chaos("nonfinite_grad", nbatches)
-            loss, ok = self._step_fetch(*staged.tail, epoch, nbatches)
-            timers.record(loss, time.time() - t0, steady=False)
-            if self.telemetry.enabled:
-                self._emit_collective_telemetry()
-            if ok is not None:
-                self._handle_nonfinite([ok], epoch)
+            with profiler_range("tail_step"):
+                t0 = time.time()
+                if self._nf_chaos_steps and \
+                        self.chaos.fire("nonfinite_grad", nbatches):
+                    self._record_chaos("nonfinite_grad", nbatches)
+                loss, ok = self._step_fetch(*staged.tail, epoch, nbatches)
+                timers.record(loss, time.time() - t0, steady=False)
+                if self.telemetry.enabled:
+                    self._emit_collective_telemetry()
+                if ok is not None:
+                    self._handle_nonfinite([ok], epoch)
         self.last_epoch_timers = timers
         return timers
 

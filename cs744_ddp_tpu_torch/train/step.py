@@ -451,7 +451,9 @@ class GraphStep:
     link record), so that its counts mean "issued to the process group"
     on either path.  The bnpool
     kernels count their own runs on the device (``bnpool.executed_counts``);
-    their wrappers' host counts see the warm-up and the capture only."""
+    their wrappers' host counts see the warm-up and the capture only.
+    ``replays`` counts the calls (each an eager step on the CPU) and
+    ``captures`` the graphs captured."""
 
     def __init__(self, fn: Callable[[], None],
                  state: Callable[[], Sequence[torch.Tensor]],
@@ -461,6 +463,8 @@ class GraphStep:
         self.group = group
         self.device = device
         self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.replays = 0
+        self.captures = 0
 
     def prepare(self) -> None:
         """Warm up and capture now, if not done yet (on the card; the CPU
@@ -469,6 +473,7 @@ class GraphStep:
             self._capture()
 
     def _capture(self) -> None:
+        self.captures += 1
         tensors = list(self.state())
         counts = self._collectives()
         side = torch.cuda.Stream(self.device)
@@ -505,6 +510,7 @@ class GraphStep:
             self.group.reset_step()
 
     def __call__(self) -> None:
+        self.replays += 1
         if self.device.type != "cuda":
             self.fn()
             return
