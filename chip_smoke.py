@@ -19,9 +19,14 @@ Phases, in order; any failure exits non-zero:
                in a window whose two largest bf16 values are a near-tie);
                and the sums captured in a CUDA graph, replayed on another
                stream beside an eager call, bitwise equal to the eager
-               sums;
-  3. time    — per shape: kernel time (median of CUDA-event timings, L2
-               flushed before each launch), its device time alone (median
+               sums; the forward kernels at the same shapes in both
+               dtypes: xhat and pooled bitwise the plain version's given
+               the kernel's statistics, the statistics bitwise run to run
+               and within 1e-5 of batch_stats in each channel's scale;
+  3. time    — per shape, the backward kernels and the forward kernels
+               (statistics; normalize -> ReLU -> pool): kernel time
+               (median of CUDA-event timings, L2 flushed before each
+               launch), its device time alone (median
                of the profiler's kernel records, each launch after the
                flush and a read pass that leaves the L2 clean), its byte
                bound and the share of it each time reaches, the plain
@@ -29,7 +34,11 @@ Phases, in order; any failure exits non-zero:
                (batch_norm -> relu -> max_pool2d) as a reference point, and
                a digest of dx's bytes (to compare two checkouts' kernels
                bit for bit); in f32, then in bf16 (lines tagged ``bf16``;
-               the bound counts 2-byte xhat, dp and dx);
+               the bound counts 2-byte xhat, dp and dx); per step the
+               forward kernels together against the forward's byte bound
+               (x read once, xhat and the pooled output written: 287.9 MB
+               in f32, 143.9 MB in bf16 at batch 256) and the plain
+               forward;
   4. train   — ``Trainer("vgg11", "single", global_batch=256)`` trains
                one whole augmented epoch on the synthetic split through its
                default windowed path (195 steps in 20-step windows, each
@@ -395,10 +404,18 @@ F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 # element (20): 47, 11.75 per element.
 SUMS_OPS_PER_ELEM = 7
 DX_OPS_PER_ELEM = 12
+# The forward kernels, per element of x: the statistics' add and
+# multiply-add (f32: the two passes' add, subtract and multiply-add), 3;
+# normalize -> ReLU -> pool's subtract, multiply, two roundings, multiply,
+# add, the ReLU and the window's compare, 8.
+STATS_OPS_PER_ELEM = 3
+NORM_POOL_OPS_PER_ELEM = 8
 BATCH = 256
 CLEAN_REPS = 20
 # The kernels' names in a profiler trace, by wrapper.
-KERNEL_FRAGMENT = {"bnpool_sums": "sums_kernel", "bnpool_dx": "dx_kernel"}
+KERNEL_FRAGMENT = {"bnpool_sums": "sums_kernel", "bnpool_dx": "dx_kernel",
+                   "bnpool_stats": "stats_kernel",
+                   "bnpool_norm_pool": "norm_pool_kernel"}
 # Partitions tune_dx tries: threads a block x windows a thread.
 TUNE_THREADS = (64, 128, 256)
 TUNE_WINDOWS = (1, 2, 4, 8)
@@ -598,6 +615,9 @@ def phase_check(errs):
         print(f"[check] f32 {shape}: max|sums err| {e_sums:.3e} (bitwise "
               f"run to run)  max|dx err| {e_dx:.3e}  ok")
     check_sums_in_graph(bnpool, xhat, dp, gamma, beta, f"f32 {RAGGED}")
+    for dtype in (torch.float32, torch.bfloat16):
+        for k, shape in enumerate(CHECK_SHAPES + [RAGGED]):
+            check_forward(bnpool, shape, dtype, 200 + k, errs)
 
     for k, shape in enumerate(CHECK_SHAPES + [RAGGED]):
         _, xhat, dp, gamma, beta, inv = inputs(shape, torch.bfloat16, 99 + k)
@@ -620,6 +640,41 @@ def phase_check(errs):
               f"run to run); max|dx err| {e_dx:.3e} outside routing flips "
               f"(at most {worst:.3f} of the bound); {flips} dx flip(s) of "
               f"{dx.numel()} elements, each at a near-tie  ok")
+
+
+def check_forward(bnpool, shape, dtype, seed, errs):
+    """The forward kernels at one shape against their plain version: xhat
+    and pooled bitwise normalize_relu_pool's with the kernel's own
+    statistics; the statistics bitwise run to run and within 1e-5 of
+    batch_stats, relative to each channel's |mean| + std (mean) and var
+    (f32) or E[x^2] (bf16; its one pass cancels that much)."""
+    x, _, _, gamma, beta, _ = inputs(shape, dtype, seed)
+    pooled, xhat, mean, var, inv = bnpool.bn_relu_pool_forward(x, gamma,
+                                                               beta)
+    want_pooled, want_xhat = bnpool.normalize_relu_pool(x, mean, inv, gamma,
+                                                        beta)
+    check(torch.equal(xhat, want_xhat.to(dtype))
+          and torch.equal(pooled, want_pooled),
+          f"{dtype} {shape}: forward kernels' xhat or pooled differ from "
+          f"the plain version's with the same statistics")
+    again = bnpool.bnpool_stats(x)
+    check(all(torch.equal(a, b) for a, b in zip(again, (mean, var, inv))),
+          f"{dtype} {shape}: statistics not bitwise reproducible")
+    m32, v32, _ = bnpool.batch_stats(x)
+    xf = x.float()
+    scale = (m32.abs() + v32.sqrt(),
+             v32 if dtype == torch.float32 else xf.square().mean((0, 2, 3)))
+    err = max(float(((mean - m32).abs() / scale[0]).max()),
+              float(((var - v32).abs() / scale[1]).max()))
+    check(err <= 1e-5, f"{dtype} {shape}: statistics {err:.3e} from "
+          f"batch_stats")
+    suffix = "" if dtype == torch.float32 else "_bf16"
+    errs["bnpool_stats" + suffix] = max(errs["bnpool_stats" + suffix], err)
+    errs["bnpool_norm_pool" + suffix] = 0.0
+    tag = "f32" if dtype == torch.float32 else "bf16"
+    print(f"[check] {tag} {shape} forward: xhat and pooled bitwise the "
+          f"plain version's with the kernel's statistics; statistics "
+          f"bitwise run to run, {err:.3e} from batch_stats in scale  ok")
 
 
 def check_bf16_dx(bnpool, xhat, gamma, beta, dx, dx_ref, label):
@@ -693,6 +748,40 @@ def time_work(bnpool, xhat, dp, gamma, beta, inv, sums):
             DX_OPS_PER_ELEM * xhat.numel())}
 
 
+def forward_work(bnpool, x, gamma, beta):
+    """The forward kernels' calls, their plain parts' (``batch_stats``;
+    ``normalize_relu_pool`` and the cast of xhat to x's dtype, as the plain
+    forward ran them in the step), and each kernel's bytes (x read once;
+    xhat and the pooled output written; the channel vectors) and f32
+    operations; {} where ``bnpool`` has no forward kernels (``--root`` on
+    a checkout from before them)."""
+    if not hasattr(bnpool, "bnpool_stats"):
+        return {}
+    mean, _, inv = bnpool.bnpool_stats(x)
+    c = x.shape[1]
+
+    def plain_norm_pool():
+        pooled, xhat = bnpool.normalize_relu_pool(x, mean, inv, gamma, beta)
+        return pooled, xhat.to(x.dtype)
+
+    return {
+        "bnpool_stats": (
+            lambda: bnpool.bnpool_stats(x),
+            lambda: bnpool.batch_stats(x),
+            x.nbytes + 3 * c * 4, STATS_OPS_PER_ELEM * x.numel()),
+        "bnpool_norm_pool": (
+            lambda: bnpool.bnpool_norm_pool(x, mean, inv, gamma, beta),
+            plain_norm_pool,
+            2 * x.nbytes + x.nbytes // 4 + 4 * c * 4,
+            NORM_POOL_OPS_PER_ELEM * x.numel())}
+
+
+def forward_bytes(x) -> int:
+    """The least the forward moves: x read once, xhat and the pooled
+    output written, gamma and beta read, mean, var and inv written."""
+    return 2 * x.nbytes + x.nbytes // 4 + 5 * x.shape[1] * 4
+
+
 def event_times(dtype, flush):
     """Phase 3's CUDA-event column at one dtype, per VGG-11 pool shape:
     each kernel's time (``time_ms``), its plain version's, its bound, the
@@ -703,7 +792,8 @@ def event_times(dtype, flush):
         x, xhat, dp, gamma, beta, inv = inputs(shape, dtype, k)
         sums = bnpool.bnpool_sums(xhat, dp, gamma, beta)
         row = {"shape": shape}
-        work = time_work(bnpool, xhat, dp, gamma, beta, inv, sums)
+        work = {**time_work(bnpool, xhat, dp, gamma, beta, inv, sums),
+                **forward_work(bnpool, x, gamma, beta)}
         for name, (kernel, plain, nbytes, ops) in work.items():
             row[name] = dict(
                 ms=time_ms(kernel, 20, flush),
@@ -711,6 +801,7 @@ def event_times(dtype, flush):
                 bound_ms=max(nbytes / HBM_BYTES_PER_S,
                              ops / F32_OPS_PER_S) * 1e3,
                 bytes=nbytes, ops=ops)
+        row["forward_bytes"] = forward_bytes(x)
         row["chain_ms"] = time_ms(chain_backward(x, gamma, beta, dp), 10,
                                   flush)
         row["digest"] = digest(bnpool.bnpool_dx(xhat, dp, gamma, beta, inv,
@@ -724,9 +815,10 @@ def add_device_times(rows, dtype, flush, evict):
     (``device_ms``) at each row's shape, on the same inputs."""
     from cs744_ddp_tpu_torch.ops import bnpool
     for k, row in enumerate(rows):
-        _, xhat, dp, gamma, beta, inv = inputs(row["shape"], dtype, k)
+        x, xhat, dp, gamma, beta, inv = inputs(row["shape"], dtype, k)
         sums = bnpool.bnpool_sums(xhat, dp, gamma, beta)
-        work = time_work(bnpool, xhat, dp, gamma, beta, inv, sums)
+        work = {**time_work(bnpool, xhat, dp, gamma, beta, inv, sums),
+                **forward_work(bnpool, x, gamma, beta)}
         for name, (kernel, _, _, _) in work.items():
             row[name]["device_ms"] = device_ms(kernel, KERNEL_FRAGMENT[name],
                                                flush, evict)
@@ -739,8 +831,10 @@ def report_times(card_line, dtype, rows):
     step (5 blocks).  Returns the per-kernel totals."""
     tag = "" if dtype == torch.float32 else " bf16"
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bytes", "ops")
-    tot = {k: dict.fromkeys(keys, 0.0) for k in ("bnpool_sums", "bnpool_dx")}
+    tot = {k: dict.fromkeys(keys, 0.0) for k in KERNEL_FRAGMENT
+           if k in rows[0]}
     chain_total = 0.0
+    fwd_bytes = sum(row["forward_bytes"] for row in rows)
     for row in rows:
         parts = []
         for name, t in tot.items():
@@ -768,6 +862,20 @@ def report_times(card_line, dtype, rows):
           f"{tot['bnpool_sums']['ms'] + tot['bnpool_dx']['ms']:.4f} ms vs "
           f"unfused library chain backward {chain_total:.4f} ms  "
           f"[{card_line}]")
+    if "bnpool_stats" not in tot:
+        return tot
+    fwd = {key: tot["bnpool_stats"][key] + tot["bnpool_norm_pool"][key]
+           for key in keys}
+    bound_ms = fwd_bytes / HBM_BYTES_PER_S * 1e3
+    tot["forward"] = dict(fwd, bound_ms=bound_ms, bytes=fwd_bytes)
+    print(f"[time]{tag} per step (5 blocks) forward kernels together: "
+          f"{fwd['ms']:.4f} ms; device alone {fwd['device_ms']:.4f} ms "
+          f"(stats {tot['bnpool_stats']['device_ms']:.4f}, norm_pool "
+          f"{tot['bnpool_norm_pool']['device_ms']:.4f}); the forward's "
+          f"bound {bound_ms:.4f} ms ({fwd_bytes / 1e6:.1f} MB: x read "
+          f"once, xhat and pooled written), {100 * bound_ms / fwd['ms']:.1f}"
+          f"% of it, device alone {100 * bound_ms / fwd['device_ms']:.1f}%;"
+          f" plain forward {fwd['plain_ms']:.4f} ms  [{card_line}]")
     return tot
 
 
@@ -881,14 +989,17 @@ def train_tier(tier, steps, log=lambda s: None, model="vgg11", **kw):
     return (trainer, *kernel_counts())
 
 
-def variants(precision, n):
-    """Each kernel variant's expected count: ``n`` for the two variants of
-    ``precision``, 0 for the others."""
+def variants(precision, n, forward=None):
+    """Each kernel variant's expected count: ``n`` for the ``precision``
+    variants of the backward kernels, ``forward`` (by default ``n`` too:
+    a training step runs each kernel once a pool block) for those of the
+    forward kernels, 0 for the others."""
     from cs744_ddp_tpu_torch.ops import bnpool
     dtype = torch.bfloat16 if precision == "bf16" else torch.float32
     want = dict.fromkeys(bnpool.KERNELS, 0)
-    want.update({bnpool.kernel_name(k, dtype): n
-                 for k in ("bnpool_sums", "bnpool_dx")})
+    want.update({bnpool.kernel_name(k, dtype): n for k in bnpool.BACKWARD})
+    want.update({bnpool.kernel_name(k, dtype): n if forward is None
+                 else forward for k in bnpool.FORWARD})
     return want
 
 
@@ -896,13 +1007,18 @@ def check_runs(label, runs, launches, steps, replayed, precision="f32"):
     """Each kernel's ``precision`` variant ran 5 times a step on the
     device (runs), the other variants never; the wrappers launched 5 a
     step eagerly, and on the windowed path (``replayed`` steps) 5 for each
-    warm-up step and 5 into the captured graph."""
+    warm-up step and 5 into the captured graph.  The per-step path
+    (``replayed`` 0, ``profile_phases``) runs the forward-only program
+    before each step: the forward kernels 5 more times a step."""
     from cs744_ddp_tpu_torch.train.step import WARMUP_ITERS
     eager = steps - replayed
     if replayed:
         eager += WARMUP_ITERS
-    want_runs = variants(precision, 5 * (eager + replayed))
-    want_launches = variants(precision, 5 * (eager + (1 if replayed else 0)))
+    fwd_only = 0 if replayed else 5 * steps
+    runs_n = 5 * (eager + replayed)
+    launches_n = 5 * (eager + (1 if replayed else 0))
+    want_runs = variants(precision, runs_n, runs_n + fwd_only)
+    want_launches = variants(precision, launches_n, launches_n + fwd_only)
     check(runs == want_runs, f"{label}: kernels ran {runs} times on the "
           f"device, want {want_runs}")
     check(launches == want_launches, f"{label}: wrappers launched "
@@ -1080,6 +1196,15 @@ def phase_train(card_line):
           f"{split['step_ms_per_iter']:.3f} ms per step; fixed cost of a "
           f"train window {split['dispatch_ms_step_window']:.3f} ms  "
           f"[{card_line}]")
+    bnpool.reset_launch_counts()
+    trainer.fwd_window()(0, 0, WINDOW).cpu()
+    fwd_runs = bnpool.executed_counts()
+    check(fwd_runs == variants("f32", 0, 5 * WINDOW),
+          f"a {WINDOW}-step forward-only window ran the kernels {fwd_runs} "
+          f"times on the device")
+    print(f"[train] forward-only window ({WINDOW} replays, captured by the "
+          f"phase split): kernel runs {fwd_runs}, the forward kernels "
+          f"alone  ok")
 
     key = aug.stream_key(trainer.seed, 0)
     batch = torch.from_numpy(trainer.train_split.images[:BATCH].copy())
@@ -1100,7 +1225,8 @@ def phase_train(card_line):
     finally:
         torch.backends.cudnn.deterministic = False
     return runs, launches, {"single/window (epoch)": runs,
-                            "single/per-step": per_runs}
+                            "single/per-step": per_runs,
+                            "single/forward-only window": fwd_runs}
 
 
 def free_port():
@@ -2024,8 +2150,8 @@ def phase_host(card_line):
         per = host_trainer(HOST_STEPS, profile_phases=True)
         per.train_model(0)
         paths["host single/per-step"] = bnpool.executed_counts()
-        check(paths["host single/per-step"] == variants("f32",
-                                                        5 * HOST_STEPS),
+        check(paths["host single/per-step"] == variants(
+                  "f32", 5 * HOST_STEPS, 10 * HOST_STEPS),
               f"host per-step: kernel runs {paths['host single/per-step']}")
         one = host_trainer(HOST_STEPS, host_chunks=1)
         one.train_model(0)
@@ -3941,8 +4067,8 @@ def main(argv=None) -> int:
         print(f"[time] kernels of {os.path.dirname(bnpool.__file__)}")
         phase_time(card_line)
         return 0
-    errs = {"bnpool_sums": 0.0, "bnpool_dx": 0.0,
-            "bnpool_sums_bf16": 0.0, "bnpool_dx_bf16": 0.0}
+    from cs744_ddp_tpu_torch.ops import bnpool
+    errs = dict.fromkeys(bnpool.KERNELS, 0.0)
     phase_check(errs)
     times = phase_time(card_line)
     launches, wrapper_launches, by_path = phase_train(card_line)
@@ -3959,8 +4085,11 @@ def main(argv=None) -> int:
     by_path.update(phase_obs(card_line))
     by_path.update(phase_audit(card_line))
 
+    fused = ("none: cs744_ddp_tpu/ops/bnpool_pallas.py::_fwd_impl is plain "
+             "JAX, fused by XLA")
     replaces = {"bnpool_sums": "cs744_ddp_tpu/ops/bnpool_pallas.py:147",
-                "bnpool_dx": "cs744_ddp_tpu/ops/bnpool_pallas.py:184"}
+                "bnpool_dx": "cs744_ddp_tpu/ops/bnpool_pallas.py:184",
+                "bnpool_stats": fused, "bnpool_norm_pool": fused}
     kernels = []
     for dtype, runs, wrapper in (("f32", launches, wrapper_launches),
                                  ("bf16", bf16_runs, bf16_launches)):
@@ -3980,7 +4109,7 @@ def main(argv=None) -> int:
             "library_ms": None, "wrapper_launches": wrapper[name + suffix],
             "launches_by_path": {p: n[name + suffix]
                                  for p, n in by_path.items()}}
-            for name in ("bnpool_sums", "bnpool_dx")]
+            for name in bnpool.BACKWARD + bnpool.FORWARD]
     print(f"[done] {time.perf_counter() - t_all:.1f} s; ms, device_ms, "
           f"plain_ms and bound_ms are per training step (5 pool blocks; "
           f"device_ms the device time alone, L2 clean); launches are "

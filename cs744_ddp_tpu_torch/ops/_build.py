@@ -34,6 +34,10 @@ SIGNATURES = {
            for t in ("f32", "bf16")},
         **{f"bnpool_dx_{t}": [_P] * 7 + [_I] * 6 + [_P] * 2
            for t in ("f32", "bf16")},
+        **{f"bnpool_stats_{t}": [_P] * 3 + [_I] * 5 + [_P] * 2
+           for t in ("f32", "bf16")},
+        **{f"bnpool_norm_pool_{t}": [_P] * 7 + [_I] * 6 + [_P] * 2
+           for t in ("f32", "bf16")},
     },
 }
 

@@ -1,10 +1,19 @@
-"""Fused BatchNorm(train) -> ReLU -> MaxPool2x2/2 with a CUDA backward.
+"""Fused BatchNorm(train) -> ReLU -> MaxPool2x2/2 in CUDA kernels.
 
-The counterpart of the reference package's ``ops/bnpool_pallas.py``.  The
-forward is plain PyTorch; the backward is two hand-written CUDA kernels
-(``csrc/bnpool.cu``) on CUDA tensors, their plain PyTorch version on CPU
-tensors, and one operator each, of the kernels' shapes, on the ``meta``
-tensors the cost model (``analysis/costmodel.py``) counts:
+The counterpart of the reference package's ``ops/bnpool_pallas.py``.  On
+CUDA tensors the forward is two hand-written CUDA kernels
+(``csrc/bnpool.cu``), which the reference left to XLA:
+
+  ``bnpool_stats``: per-channel mean, biased var and inv = rsqrt(var + eps)
+      (``batch_stats``' semantics);
+  ``bnpool_norm_pool``: the residual xhat in the activation dtype and the
+      pooled output (``normalize_relu_pool``'s roundings);
+
+on CPU and ``meta`` tensors it is their plain PyTorch version, so the cost
+model (``analysis/costmodel.py``) counts the plain forward's operators.
+The backward is two hand-written CUDA kernels on CUDA tensors, their plain
+PyTorch version on CPU tensors, and one operator each, of the kernels'
+shapes, on the ``meta`` tensors the cost model counts:
 
   phase 1 (``bnpool_sums``): recompute the pool routing and the ReLU gate
       from the stored BN residual xhat, reduce sum(dy) and sum(dy*xhat)
@@ -59,15 +68,36 @@ _DX_GRID_THREADS = 32768
 _DX_THREADS = 256
 _DX_MIN_THREADS = 32
 _DX_MIN_BLOCKS = 132
+# The forward's statistics kernel: the sums kernel's lanes (one 16-byte
+# channel vector a thread, so again C / (16 / itemsize) <= 256), at least
+# _STATS_ROWS rows a thread, at most _STATS_BLOCKS blocks (two an H100
+# streaming multiprocessor; the launch is cooperative, like the sums
+# kernel's).
+_STATS_THREADS = 256
+_STATS_ROWS = 4
+_STATS_BLOCKS = 264
+# The normalize -> ReLU -> pool kernel: dx_partition's rule with windows a
+# thread of its own.
+_POOL_WINDOWS = {4: 2, 2: 4}
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# Each kernel's wrapper, backward then forward.
+BACKWARD = ("bnpool_sums", "bnpool_dx")
+FORWARD = ("bnpool_stats", "bnpool_norm_pool")
 # The kernels by variant, each wrapper at each dtype: the keys of
 # ``launch_counts`` and ``executed_counts``.
-KERNELS = ("bnpool_sums", "bnpool_dx", "bnpool_sums_bf16", "bnpool_dx_bf16")
+KERNELS = ("bnpool_sums", "bnpool_dx", "bnpool_sums_bf16", "bnpool_dx_bf16",
+           "bnpool_stats", "bnpool_norm_pool", "bnpool_stats_bf16",
+           "bnpool_norm_pool_bf16")
+# Each wrapper's kernel in a torch.profiler trace, by name fragment (the
+# template names: ``sums_kernel<float>``, ``norm_pool_kernel<__nv_bfloat16>``).
+PROFILED = {"bnpool_sums": "sums_kernel", "bnpool_dx": "dx_kernel",
+            "bnpool_stats": "stats_kernel",
+            "bnpool_norm_pool": "norm_pool_kernel"}
 
 
 def kernel_name(wrapper: str, dtype: torch.dtype) -> str:
-    """The variant of ``wrapper`` ("bnpool_sums" or "bnpool_dx") that runs
-    on tensors of ``dtype``."""
+    """The variant of ``wrapper`` (one of ``BACKWARD`` or ``FORWARD``) that
+    runs on tensors of ``dtype``."""
     return wrapper if dtype == torch.float32 else f"{wrapper}_bf16"
 
 
@@ -77,7 +107,7 @@ def _c(v: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Forward (plain PyTorch; the reference's _fwd_impl)
+# Forward: plain PyTorch version (the reference's _fwd_impl)
 # ---------------------------------------------------------------------------
 
 def batch_stats(x: torch.Tensor
@@ -111,16 +141,24 @@ def normalize_relu_pool(x: torch.Tensor, mean: torch.Tensor,
     return F.max_pool2d(y, kernel_size=2, stride=2), xhat
 
 
+def _check_even(x: torch.Tensor) -> None:
+    if x.dim() != 4 or x.shape[2] % 2 or x.shape[3] % 2:
+        raise ValueError(f"bn_relu_pool needs [N,C,H,W] with even H and W "
+                         f"(2x2/2 pool windows), got {tuple(x.shape)}")
+
+
 def bn_relu_pool_forward(x: torch.Tensor, gamma: torch.Tensor,
                          beta: torch.Tensor):
     """(pooled, xhat, mean, var, inv) of train-mode BN -> ReLU -> 2x2 pool.
 
-    x: [N,C,H,W] f32 or bf16 with even H and W; gamma, beta: f32 [C]."""
-    if x.dim() != 4 or x.shape[2] % 2 or x.shape[3] % 2:
-        raise ValueError(f"bn_relu_pool needs [N,C,H,W] with even H and W "
-                         f"(2x2/2 pool windows), got {tuple(x.shape)}")
-    mean, var, inv = batch_stats(x)
-    pooled, xhat = normalize_relu_pool(x, mean, inv, gamma, beta)
+    x: [N,C,H,W] f32 or bf16 with even H and W; gamma, beta: f32 [C].
+    CUDA tensors launch the two forward kernels (``bnpool_stats``,
+    ``bnpool_norm_pool``; xhat in x's dtype) or raise; CPU and meta
+    tensors run the plain version (``batch_stats``,
+    ``normalize_relu_pool``; xhat in f32)."""
+    _check_even(x)
+    mean, var, inv = bnpool_stats(x)
+    pooled, xhat = bnpool_norm_pool(x, mean, inv, gamma, beta)
     return pooled, xhat, mean, var, inv
 
 
@@ -243,10 +281,25 @@ def dx_partition(n: int, c: int, h: int, w: int, itemsize: int,
     ``per_thread`` windows a thread (by default the rule above;
     chip_smoke.py --tune-dx times others).  It follows from the shape
     alone, never from the card."""
+    return _window_partition(n, c, h, w, itemsize, per_thread,
+                             _DX_WINDOWS[itemsize])
+
+
+def norm_pool_partition(n: int, c: int, h: int, w: int,
+                        itemsize: int) -> Tuple[int, int]:
+    """(threads, blocks) of the normalize -> ReLU -> pool kernel for x
+    [n, c, h, w]: ``dx_partition``'s rule (the kernel walks the windows as
+    the dx kernel does) with up to ``_POOL_WINDOWS[itemsize]`` windows a
+    thread."""
+    return _window_partition(n, c, h, w, itemsize, None,
+                             _POOL_WINDOWS[itemsize])
+
+
+def _window_partition(n, c, h, w, itemsize, per_thread, most):
     vectors = c // (16 // itemsize)
     windows = n * (h // 2) * (w // 2)
     if per_thread is None:
-        per_thread = _DX_WINDOWS[itemsize]
+        per_thread = most
         while (per_thread > 1
                and vectors * windows // per_thread < _DX_GRID_THREADS):
             per_thread //= 2
@@ -258,6 +311,16 @@ def dx_partition(n: int, c: int, h: int, w: int, itemsize: int,
         if blocks >= _DX_MIN_BLOCKS or threads <= _DX_MIN_THREADS:
             return threads, blocks
         threads //= 2
+
+
+def stats_partition(n: int, c: int, h: int, w: int, itemsize: int) -> int:
+    """Blocks of the statistics kernel for x [n, c, h, w] of
+    ``itemsize``-byte elements: 256 // (C / V) rows at a time a block (V =
+    16 / itemsize), at least ``_STATS_ROWS`` rows a thread, at most
+    ``_STATS_BLOCKS`` blocks.  It follows from the shape alone, so the
+    kernel sums in the same order on every card."""
+    groups = _STATS_THREADS // (c // (16 // itemsize))
+    return min(-(-(n * h * w) // (groups * _STATS_ROWS)), _STATS_BLOCKS)
 
 
 def _check_vector_path(kernel: str, xhat, tensors,
@@ -384,6 +447,96 @@ def bnpool_dx(xhat, dp, gamma, beta, inv, sums) -> torch.Tensor:
     return dx
 
 
+# ---------------------------------------------------------------------------
+# Forward: kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_forward(kernel: str, x, vectors=(), max_vectors=None) -> None:
+    """What the forward kernels take: x [N,C,H,W] f32 or bf16 with even H
+    and W, channels_last contiguous, indexable with 32-bit ints, C a whole
+    number of 16-byte channel vectors (at most ``max_vectors``), and each
+    of ``vectors`` f32 [C], contiguous, on x's device; every tensor
+    16-byte aligned."""
+    _check_even(x)
+    if x.dtype not in _SUFFIX:
+        raise TypeError(f"{kernel} takes f32 or bf16 x, got {x.dtype}")
+    c = x.shape[1]
+    for v in vectors:
+        if tuple(v.shape) != (c,):
+            raise ValueError(f"expected shape {(c,)}, got {tuple(v.shape)}")
+        if v.dtype != torch.float32:
+            raise TypeError(f"channel vectors must be f32, got {v.dtype}")
+        if v.device != x.device:
+            raise ValueError(f"inputs on several devices: {x.device}, "
+                             f"{v.device}")
+        if not v.is_contiguous():
+            raise ValueError("channel vectors must be contiguous")
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError(f"{kernel} needs x channels_last contiguous")
+    if x.numel() >= 2 ** 31:
+        raise ValueError("the kernels index with 32-bit ints; x has "
+                         f"{x.numel()} elements")
+    _check_vector_path(kernel, x, (x, *vectors), max_vectors=max_vectors)
+
+
+def bnpool_stats(x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(mean, biased var, inv), f32 [C] each, of x [N,C,H,W].  CUDA tensors
+    launch the statistics kernel once (``launch_counts``,
+    ``executed_counts``) or raise; other tensors take ``batch_stats``.
+    The kernel's sums are bitwise reproducible run to run: f32 within each
+    thread, f64 across threads and blocks, in an order that follows from
+    the shape alone (``stats_partition``)."""
+    if not x.is_cuda:
+        return batch_stats(x)
+    name = kernel_name("bnpool_stats", x.dtype)
+    _check_forward(name, x, max_vectors=_STATS_THREADS)
+    n, c, h, w = x.shape
+    blocks = stats_partition(n, c, h, w, x.element_size())
+    partial = torch.empty((blocks, 2, c), dtype=torch.float64,
+                          device=x.device)
+    stats = torch.empty((3, c), dtype=torch.float32, device=x.device)
+    lib = _build.library(_SOURCE)
+    fn = getattr(lib, f"bnpool_stats_{_SUFFIX[x.dtype]}")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), partial.data_ptr(), stats.data_ptr(), n, h, w,
+                 c, blocks, _executed(x.device, name), stream)
+    _build.check(lib, err, name)
+    _LAUNCHES[name] += 1
+    return stats[0], stats[1], stats[2]
+
+
+def bnpool_norm_pool(x, mean, inv, gamma, beta
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(pooled, xhat) for given statistics.  CUDA tensors launch the
+    normalize -> ReLU -> pool kernel once (``launch_counts``,
+    ``executed_counts``) or raise: xhat in x's dtype, both channels_last,
+    rounded as ``normalize_relu_pool`` rounds.  Other tensors take
+    ``normalize_relu_pool`` (xhat in f32)."""
+    if not x.is_cuda:
+        return normalize_relu_pool(x, mean, inv, gamma, beta)
+    name = kernel_name("bnpool_norm_pool", x.dtype)
+    _check_forward(name, x, (mean, inv, gamma, beta))
+    n, c, h, w = x.shape
+    xhat = torch.empty_like(x, memory_format=torch.channels_last)
+    pooled = torch.empty((n, c, h // 2, w // 2), dtype=x.dtype,
+                         device=x.device, memory_format=torch.channels_last)
+    _check_vector_path(name, x, (xhat, pooled))
+    threads, blocks = norm_pool_partition(n, c, h, w, x.element_size())
+    lib = _build.library(_SOURCE)
+    fn = getattr(lib, f"bnpool_norm_pool_{_SUFFIX[x.dtype]}")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), mean.data_ptr(), inv.data_ptr(),
+                 gamma.data_ptr(), beta.data_ptr(), xhat.data_ptr(),
+                 pooled.data_ptr(), n, h, w, c, threads, blocks,
+                 _executed(x.device, name), stream)
+    _build.check(lib, err, name)
+    _LAUNCHES[name] += 1
+    return pooled, xhat
+
+
 def reset_launch_counts() -> None:
     """Zero the wrappers' launch counts and the kernels' run counters."""
     _LAUNCHES.update(dict.fromkeys(KERNELS, 0))
@@ -410,12 +563,10 @@ def executed_counts() -> Dict[str, int]:
 
 def profiled_runs(names: Dict[str, int]) -> Dict[str, int]:
     """Runs of each kernel variant in a ``torch.profiler`` trace, from the
-    counts of its device events by name (the kernels' template names:
-    ``sums_kernel<float>``, ``dx_kernel<__nv_bfloat16>``, ...)."""
+    counts of its device events by name (``PROFILED``)."""
     runs = dict.fromkeys(KERNELS, 0)
     for event, n in names.items():
-        for wrapper, frag in (("bnpool_sums", "sums_kernel"),
-                              ("bnpool_dx", "dx_kernel")):
+        for wrapper, frag in PROFILED.items():
             if frag in event:
                 dtype = torch.bfloat16 if "bfloat16" in event \
                     else torch.float32
@@ -448,7 +599,8 @@ class BnReluPool(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta):
         pooled, xhat, mean, var, inv = bn_relu_pool_forward(x, gamma, beta)
-        # Residual in the activation dtype, as the reference stores it.
+        # Residual in the activation dtype, as the reference stores it (the
+        # kernel writes it so; the plain version's f32 xhat is cast here).
         ctx.save_for_backward(xhat.to(x.dtype), inv, gamma, beta)
         ctx.set_materialize_grads(False)
         return pooled, mean, var

@@ -13,7 +13,8 @@ it) and the windowed path (one window of ``STEPS`` replays of the captured
 step, one fetch).  Each is warmed up, then ``STEPS`` steady steps are traced
 with ``torch.profiler``, and it prints: the wall time per step, the
 device's busy share of it (union of kernel intervals over wall time),
-device time per step by kernel family, each of the port's own kernels, and
+device time per step by kernel family, each of the port's own kernels
+(``bnpool.PROFILED``: the forward's and the backward's), and
 the top kernels.  A model with no pool block (the ResNets) runs no bnpool
 kernel: its bnpool family is reported absent, not as zero time.
 ``--elastic strong``: the window's step is the elastic microshard step
@@ -34,6 +35,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ..models.layers import BnReluPool2d
+from ..ops import bnpool
 from ..train import loop
 
 WARMUP = 25
@@ -115,8 +117,9 @@ def report(label: str, run, steps: int, pool_blocks: bool = True) -> None:
     if not pool_blocks:
         print(f"[profile] {label}: family bnpool kernels: absent (the "
               f"model has no pool block)")
+    own = tuple(bnpool.PROFILED.values())
     for name, (us, n) in sorted(by_name.items()):
-        if family(name) == "bnpool kernels":
+        if any(frag in name for frag in own):
             print(f"[profile] {label}: bnpool kernel {us / steps / 1e3:.4f} "
                   f"ms/step x{n // steps}/step  {name[:110]}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]

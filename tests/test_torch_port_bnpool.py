@@ -212,18 +212,34 @@ def test_wrapper_counts_only_kernel_launches_and_checks_inputs():
         bnpool.bnpool_sums(xhat, dp.to(torch.bfloat16), g, b)
 
 
+# The forward kernels' names as the profiler records them (demangled, with
+# their argument types).
+STATS_F32 = ("void (anonymous namespace)::stats_kernel<float>(float const*, "
+             "double*, float*, int, int, unsigned long long*)")
+NORM_POOL_BF16 = (
+    "void (anonymous namespace)::norm_pool_kernel<__nv_bfloat16>("
+    "__nv_bfloat16 const*, float const*, float const*, float const*, "
+    "float const*, __nv_bfloat16*, __nv_bfloat16*, "
+    "(anonymous namespace)::DxGrid, unsigned long long*)")
+
+
 def test_profiled_runs_count_each_kernel_variant():
     """A trace's device events by name -> runs of each kernel variant: the
     template argument tells the dtype, other kernels are not counted."""
     names = {"void sums_kernel<float>(float const*, float const*)": 5,
              "void dx_kernel<__nv_bfloat16>(__nv_bfloat16 const*)": 3,
              "void sums_kernel<__nv_bfloat16>(__nv_bfloat16 const*)": 2,
+             STATS_F32: 4, NORM_POOL_BF16: 6,
+             "void at::native::batch_norm_collect_statistics_kernel<float>": 9,
              "sm90_xmma_fprop_implicit_gemm_bf16": 7}
     assert bnpool.profiled_runs(names) == {
         "bnpool_sums": 5, "bnpool_dx": 0, "bnpool_sums_bf16": 2,
-        "bnpool_dx_bf16": 3}
-    assert [bnpool.kernel_name(k, d) for d in (torch.float32, torch.bfloat16)
-            for k in ("bnpool_sums", "bnpool_dx")] == list(bnpool.KERNELS)
+        "bnpool_dx_bf16": 3, "bnpool_stats": 4, "bnpool_norm_pool": 0,
+        "bnpool_stats_bf16": 0, "bnpool_norm_pool_bf16": 6}
+    assert [bnpool.kernel_name(k, d) for ks in (bnpool.BACKWARD,
+                                                bnpool.FORWARD)
+            for d in (torch.float32, torch.bfloat16)
+            for k in ks] == list(bnpool.KERNELS)
 
 
 def _chip_smoke():
@@ -322,14 +338,16 @@ def test_sums_vector_path_checks():
     bnpool._check_vector_path("bnpool_sums", x, [x, flat[4:16]], **limit)
 
 
-def _dx_kernel_writes(n, c, h, w, itemsize):
+def _dx_kernel_writes(n, c, h, w, itemsize, grid=None):
     """The dx kernel's launch (csrc/bnpool.cu::launch_dx) and index walk
-    (dx_kernel) for ``dx_partition``'s grid, in Python: the block and grid
-    it derives from (threads, blocks), then each thread's channel vector
-    and windows, (row, wo) advanced by adds.  Returns the grid and the
-    element offsets of every dx element written and every dP element
-    read."""
-    threads, blocks = bnpool.dx_partition(n, c, h, w, itemsize)
+    (dx_kernel) for ``dx_partition``'s grid (or ``grid``), in Python: the
+    block and grid it derives from (threads, blocks), then each thread's
+    channel vector and windows, (row, wo) advanced by adds.  Returns the
+    grid and the element offsets of every dx element written and every dP
+    element read.  The norm_pool kernel walks the same way (its tiles in
+    another order): xhat where dx is written, the pooled output where dP
+    is read."""
+    threads, blocks = grid or bnpool.dx_partition(n, c, h, w, itemsize)
     v = 16 // itemsize
     vectors, wo_count = c // v, w // 2
     windows = n * (h // 2) * wo_count
@@ -404,6 +422,195 @@ def test_dx_vector_path_checks():
     bnpool._check_vector_path("bnpool_dx_bf16", x, [x, x, inv, sums, x])
     wide = torch.zeros((1, 4104, 2, 2))
     bnpool._check_vector_path("bnpool_dx", wide, [wide])
+
+
+# The five VGG-11 pool blocks at batch 256 and at world 4's 64 rows a rank.
+FORWARD_SHAPES = [(n, c, h, w) for n in (256, 64)
+                  for _, c, h, w in PARTITION_SHAPES[:5]]
+
+
+def _stats_kernel_rows(n, c, h, w, itemsize):
+    """The statistics kernel's launch and row walk (csrc/bnpool.cu::
+    stats_kernel, stats_rows) in Python: each thread group's rows in its
+    first pass (grid-stride from b*G + g) and its second (from
+    first + (count - 1) * step down by step); and the finishing blocks'
+    channel ranges (stats_finish).  Every thread of a group reads the same
+    rows, one channel vector each (lane_of)."""
+    blocks = bnpool.stats_partition(n, c, h, w, itemsize)
+    vectors = c // (16 // itemsize)
+    groups = bnpool._STATS_THREADS // vectors
+    rows = n * h * w
+    step = blocks * groups
+    passes = []
+    for b in range(blocks):
+        for g in range(groups):
+            first = b * groups + g
+            count = (rows - 1 - first) // step + 1 if first < rows else 0
+            fwd = first + step * np.arange(count)
+            rev = first + (count - 1) * step - step * np.arange(count)
+            passes.append((fwd, rev))
+    finishers = min(128, blocks)                # kStatsFinishers
+    per = -(-c // finishers)
+    channels = [np.arange(f * per, min(c, (f + 1) * per))
+                for f in range(finishers)]
+    return blocks, groups, rows, passes, channels
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("shape", FORWARD_SHAPES + PARTITION_SHAPES[5:])
+def test_stats_partition_covers_every_row_vector_once(shape, itemsize):
+    """Each (row, channel vector) is read once in each pass of the
+    statistics kernel, the second pass each thread's rows in reverse, and
+    each channel is finished by one block; the grid follows from the shape
+    alone."""
+    n, c, h, w = shape
+    blocks, groups, rows, passes, channels = _stats_kernel_rows(
+        n, c, h, w, itemsize)
+    assert 1 <= blocks <= bnpool._STATS_BLOCKS
+    assert groups * (c // (16 // itemsize)) <= bnpool._STATS_THREADS
+    if blocks < bnpool._STATS_BLOCKS:           # not capped: 4 rows a thread
+        assert max(len(f) for f, _ in passes) <= bnpool._STATS_ROWS
+    for k in (0, 1):
+        read = np.concatenate([p[k] for p in passes])
+        np.testing.assert_array_equal(np.bincount(read, minlength=rows), 1)
+    for fwd, rev in passes:
+        np.testing.assert_array_equal(rev, fwd[::-1])
+    np.testing.assert_array_equal(
+        np.bincount(np.concatenate(channels), minlength=c), 1)
+    assert blocks == bnpool.stats_partition(n, c, h, w, itemsize)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("shape", FORWARD_SHAPES + PARTITION_SHAPES[5:])
+def test_norm_pool_partition_covers_every_window_vector_once(shape,
+                                                             itemsize):
+    """Each xhat element is written once and each pooled element once by
+    the normalize -> ReLU -> pool kernel's walk, whose grid follows from
+    the shape alone."""
+    n, c, h, w = shape
+    grid = bnpool.norm_pool_partition(n, c, h, w, itemsize)
+    _, xhat, pooled = _dx_kernel_writes(n, c, h, w, itemsize, grid)
+    np.testing.assert_array_equal(
+        np.bincount(xhat, minlength=n * c * h * w), 1)
+    np.testing.assert_array_equal(
+        np.bincount(pooled, minlength=n * c * (h // 2) * (w // 2)), 1)
+    assert 1 <= grid[0] <= bnpool._DX_THREADS
+    assert grid == bnpool.norm_pool_partition(n, c, h, w, itemsize)
+
+
+def test_forward_kernel_checks():
+    """What the forward kernels' wrappers refuse on a CUDA tensor, checked
+    here on CPU tensors: odd H or W, a dtype other than f32 and bf16, x not
+    channels_last, C not a whole number of 16-byte vectors (or more than
+    the statistics kernel's 256), channel vectors of another dtype or
+    shape, and a misaligned tensor."""
+    def cl(t):
+        return t.contiguous(memory_format=torch.channels_last)
+
+    x, v = cl(torch.zeros((2, 16, 4, 4))), torch.zeros(16)
+    vectors = (v, v, v, v)
+    bnpool._check_forward("bnpool_norm_pool", x, vectors)
+    bnpool._check_forward("bnpool_stats", x, max_vectors=256)
+    for odd in ((2, 16, 3, 4), (2, 16, 4, 5)):
+        with pytest.raises(ValueError, match="even H and W"):
+            bnpool._check_forward("bnpool_stats", cl(torch.zeros(odd)))
+    with pytest.raises(TypeError, match="takes f32 or bf16 x"):
+        bnpool._check_forward("bnpool_stats", x.half())
+    with pytest.raises(ValueError, match="channels_last contiguous"):
+        bnpool._check_forward("bnpool_stats", torch.zeros((2, 16, 4, 4)))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        bnpool._check_forward("bnpool_stats_bf16",
+                              cl(torch.zeros((2, 12, 4, 4),
+                                             dtype=torch.bfloat16)))
+    with pytest.raises(ValueError, match="at most 1024"):
+        bnpool._check_forward("bnpool_stats", cl(torch.zeros((1, 1032, 2, 2))),
+                              max_vectors=256)
+    with pytest.raises(TypeError, match="must be f32"):
+        bnpool._check_forward("bnpool_norm_pool", x, (v, v.half(), v, v))
+    with pytest.raises(ValueError, match="expected shape"):
+        bnpool._check_forward("bnpool_norm_pool", x, (v, v, v[:8], v))
+    flat = torch.zeros(2 * 16 * 4 * 4 + 1)
+    shifted = flat[1:].view(2, 4, 4, 16).permute(0, 3, 1, 2)
+    assert shifted.is_contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        bnpool._check_forward("bnpool_stats", shifted)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        bnpool._check_forward("bnpool_norm_pool", x,
+                              (v, torch.zeros(17)[1:], v, v))
+
+
+def _dispatched(fn):
+    """The operators ``fn`` dispatches, in order."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Record() as rec:
+        fn()
+    return rec.ops
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_cpu_and_meta_paths_are_the_plain_version(dtype):
+    """On CPU tensors the forward returns the plain version's values
+    bitwise, xhat in f32 as before, and launches nothing; on meta tensors
+    (the cost model's and the audit's) it dispatches exactly the plain
+    version's operators."""
+    x, gamma, beta, _ = _inputs((4, 8, 8, 16), 7)
+    xt, g, b = _nchw(x, dtype), torch.from_numpy(gamma), \
+        torch.from_numpy(beta)
+
+    def plain(xt, g, b):
+        mean, var, inv = bnpool.batch_stats(xt)
+        pooled, xhat = bnpool.normalize_relu_pool(xt, mean, inv, g, b)
+        return pooled, xhat, mean, var, inv
+
+    bnpool.reset_launch_counts()
+    got = bnpool.bn_relu_pool_forward(xt, g, b)
+    for a, r in zip(got, plain(xt, g, b)):
+        assert a.dtype == r.dtype and torch.equal(a, r)
+    assert got[1].dtype == torch.float32
+    assert bnpool.launch_counts() == dict.fromkeys(bnpool.KERNELS, 0)
+    meta = [t.to("meta") for t in (xt, g, b)]
+    ops = _dispatched(lambda: bnpool.bn_relu_pool_forward(*meta))
+    assert ops and ops == _dispatched(lambda: plain(*meta))
+    assert not any(bnpool.META_NAMESPACE in op for op in ops)
+
+
+def _load_metric(name):
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "portbench",
+                        "metrics", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_forward_kernels_count_as_other_work():
+    """The benchmark's yardstick puts the forward kernels in no named
+    family ("other"), so nonconv_ms_per_step.train reads their time and
+    the backward's roofline share reads the backward's kernels alone."""
+    from portbench import yardstick
+    roofline = _load_metric("bnpool_bwd_roofline_pct.train")
+    names = [STATS_F32, NORM_POOL_BF16,
+             STATS_F32.replace("float>(float", "__nv_bfloat16>("
+                               "__nv_bfloat16"),
+             NORM_POOL_BF16.replace("__nv_bfloat16", "float")]
+    for name in names:
+        assert yardstick.family(name) == "other", name
+        assert not any(k in name for k in roofline.KERNELS), name
+    assert sum(bnpool.profiled_runs(dict.fromkeys(names, 1)).values()) == 4
+    assert yardstick.family("void sums_kernel<float>(float const*)") \
+        == "bnpool kernels"
 
 
 @pytest.mark.gpu
