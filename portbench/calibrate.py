@@ -29,8 +29,7 @@ import tempfile
 import time
 from typing import Dict, List
 
-from . import check, faults, run, worker
-from .reference.model import leaves
+from . import check, faults, plugins, run, worker
 from .reference.steps import Readings
 
 CONTROL = {"f32": "tf32", "bf16": "fp8"}
@@ -58,6 +57,7 @@ def calibrate_rank(rank: int, world: int, spec: dict, seeds: List[int],
             device = torch.device(device_type)
         steps = spec["traffic"]["checked_steps"]
         control = CONTROL[spec["traffic"]["precision"]]
+        arch, _ = plugins.cell(spec)
         for seed in seeds:
             t = time.time()
             data_dir = os.path.join(data_root, str(seed))
@@ -74,7 +74,7 @@ def calibrate_rank(rank: int, world: int, spec: dict, seeds: List[int],
                 with plant:
                     trainer = worker.build_trainer(spec, seed, data_dir,
                                                    device, [])
-                    got[mode] = worker.checked_steps(trainer, steps)
+                    got[mode] = worker.checked_steps(trainer, steps, arch)
                     del trainer
                     gc.collect()
             if world > 1:
@@ -85,7 +85,7 @@ def calibrate_rank(rank: int, world: int, spec: dict, seeds: List[int],
                     spec, seed, data_dir, device, control)
                 rec = {"seed": seed, "seconds": time.time() - t,
                        "reference_raw": ref._asdict()}
-                names = [leaf.name for leaf in leaves(spec["config"])]
+                names = [leaf.name for leaf in arch.leaves(spec["config"])]
                 for mode, readings in got.items():
                     rec[mode] = check.numbers(readings, ref)
                     rec[mode + "_raw"] = readings._asdict()

@@ -15,10 +15,12 @@ compared are:
     over the leaves whose reference gradient is at least a thousandth of
     the median leaf's (the others, such as a convolution's bias before a
     BatchNorm, move by weight decay and round-off alone);
-  * ``stats1_gap``: the same of the BN running statistics' change after
-    the first step (the forward alone: a pool window's near-tie, which the
-    program and the reference may route to different elements, does not
-    reach it);
+  * ``stats1_gap``: the same of the compared state's change after the
+    first step: the state the architecture names (``CHECKED_STATE`` in
+    ``arch/<architecture>.py``; the BN running statistics of the CIFAR
+    classifiers: the forward alone, which a pool window's near-tie, routed
+    to different elements by the program and the reference, does not
+    reach); absent where it names none;
   * ``grad_gap_median``, ``change_gap_median``: the median leaf's gap of
     the first gradient and of the change.  The worst leaf is one
     of a few small ill-conditioned leaves (a convolution's bias before a
@@ -66,18 +68,20 @@ def numbers(prog: Readings, ref: Readings) -> Dict[str, float]:
                        [ref.change[i] for i in keep])
     out["grad_gap"] = max(grad)
     out["change_gap"] = max(change)
-    out["stats1_gap"] = max(leaf_gaps(prog.stats_change1,
-                                      ref.stats_change1))
+    if prog.stats_change1 or ref.stats_change1:
+        out["stats1_gap"] = max(leaf_gaps(prog.stats_change1,
+                                          ref.stats_change1))
     out["grad_gap_median"] = statistics.median(grad)
     out["change_gap_median"] = statistics.median(change)
     return out
 
 
 def judge(values: Dict[str, float], limits: Dict[str, Optional[float]]
-          ) -> Tuple[bool, List[Tuple[str, float, Optional[float]]]]:
-    """(correct, [(name, value, limit)]).  A number with no limit key, or
-    a value that is not finite, is not correct; a null limit is printed
-    and not compared."""
+          ) -> Tuple[bool, List[Tuple[str, Optional[float], Optional[float]]]]:
+    """(correct, [(name, value, limit)]).  A number with no limit key, a
+    value that is not finite, or a limit whose number the run did not give
+    (its value None) is not correct; a null limit is printed and not
+    compared."""
     rows, ok = [], True
     for name, value in values.items():
         if name not in limits:
@@ -88,4 +92,8 @@ def judge(values: Dict[str, float], limits: Dict[str, Optional[float]]
         if limit is not None and not value <= limit:
             ok = False
         rows.append((name, value, limit))
+    for name, limit in limits.items():
+        if name not in values and limit is not None:
+            ok = False
+            rows.append((name, None, limit))
     return ok, rows

@@ -21,5 +21,5 @@ def read(ctx):
     if us <= 0:
         return None
     bound_s = yardstick.bnpool_bwd_bound_s(
-        ctx.config, ctx.step_batches, ctx.traffic["precision"])
+        ctx.config, ctx.step_batches, ctx.traffic["precision"], ctx.root)
     return 100.0 * bound_s / (us / 1e6)

@@ -1,7 +1,8 @@
-"""The whole step's share of the card's peak: images a second a chip in
-the measured window x the model's FLOPs an image (``yardstick``: 6 x the
-convolutions' and linear layers' MACs, from the architecture's shapes)
-over the bf16 dense peak, whatever the precision."""
+"""The whole step's share of the card's peak: examples a second a chip in
+the measured window x the model's FLOPs an example (``yardstick``: 6 x the
+architecture plug-in's MACs an example, for the CIFAR classifiers the
+convolutions' and linear layers' of an image, from the shapes) over the
+bf16 dense peak, whatever the precision."""
 
 from portbench import yardstick
 
@@ -13,4 +14,5 @@ SOURCE = "host_clock"
 
 
 def read(ctx):
-    return yardstick.mfu_pct(ctx.images_per_s / ctx.chips, ctx.config)
+    return yardstick.mfu_pct(ctx.images_per_s / ctx.chips, ctx.config,
+                             ctx.traffic, ctx.root)

@@ -36,10 +36,11 @@ The parts are those of a profiled epoch.  The profiler lengthens the
 eager tail, the edges and the gaps between a replay's kernels, so a part
 reads more than the same part of an epoch run without it.
 
-The benchmark's own traced epoch (``worker._traced_epoch``) keeps neither
-the profiler's events nor the trace counts, so until the benchmark reads
-them itself (then ``traced_epoch``, ``rank_entry``, ``wired`` and
-``main`` go) these metrics are read by a run of their own:
+The benchmark's own traced epoch (``worker._traced_epoch``) keeps the
+trace counts (its ``counters["trainer"]``) but not the profiler's events,
+so until the benchmark reads them itself (then ``traced_epoch``,
+``rank_entry``, ``wired`` and ``main`` go) these metrics are read by a run
+of their own:
 
     python -m portbench.partition --workload <cell> --seed <n> \\
         --seconds <s>
@@ -167,18 +168,15 @@ def summarize(events) -> dict:
     return out
 
 
-def traced_epoch(trainer, epoch: int, stop) -> dict:
+def traced_epoch(trainer, epoch: int, stop, plan: int) -> dict:
     """``worker._traced_epoch`` with ``summarize`` in place of
-    ``trace.summarize``, the difference of ``trainer.trace_counts()`` over
-    the epoch added (absent where the program has no such method), and
-    ``harness_agrees``: whether ``trace.summarize`` of the same events
-    reads the same wall, busy time, families and kernels.
+    ``trace.summarize``, and ``harness_agrees``: whether
+    ``trace.summarize`` of the same events reads the same wall, busy time,
+    families and kernels.
 
     Raises where the traced epoch is not a steady one (a capture, a
     restaging, or a round trip beside one a window and one an eager step):
     its parts would then hold that work too."""
-    counts = getattr(trainer, "trace_counts", None)
-    before = counts() if counts else None
     held = {}
 
     def read(events):
@@ -188,21 +186,18 @@ def traced_epoch(trainer, epoch: int, stop) -> dict:
 
     trace.summarize = read
     try:
-        summary = _harness_traced_epoch(trainer, epoch, stop)
+        summary = _harness_traced_epoch(trainer, epoch, stop, plan)
     finally:
         trace.summarize = _harness_summarize
     summary["harness_agrees"] = all(
         held["agrees"][k] == summary[k]
         for k in ("wall_us", "busy_us", "families", "kernels"))
-    if counts:
-        got = {k: v - before[k] for k, v in counts().items()}
-        summary["trace_counts"] = got
-        windows = summary["ranges"].get("window_dispatch", [0])[0]
-        if got["captures"] or got["restages"] or \
-                got["host_round_trips"] != windows + got["eager_steps"]:
-            raise RuntimeError(f"rank {trainer.rank}: the traced epoch is "
-                               f"not a steady one: {got}, {windows} "
-                               f"window(s)")
+    got = summary["counters"]["trainer"]
+    windows = summary["ranges"].get("window_dispatch", [0])[0]
+    if got["captures"] or got["restages"] or \
+            got["host_round_trips"] != windows + got["eager_steps"]:
+        raise RuntimeError(f"rank {trainer.rank}: the traced epoch is not a "
+                           f"steady one: {got}, {windows} window(s)")
     idle = summary["wall_us"] - summary["busy_us"]
     parts = {k: round(v, 1) for k, v in summary["partition"].items()}
     ranges = {k: [round(x, 1) for x in v]
@@ -211,8 +206,7 @@ def traced_epoch(trainer, epoch: int, stop) -> dict:
           f"us, idle {idle:.1f} us = parts {parts} (sum "
           f"{sum(summary['partition'].values()):.1f}); misstamped "
           f"{summary['misstamped']}; harness agrees "
-          f"{summary['harness_agrees']}; trace counts "
-          f"{summary.get('trace_counts')}; ranges (count, us, self us) "
+          f"{summary['harness_agrees']}; trace counts {got}; ranges (count, us, self us) "
           f"{ranges}", file=sys.stderr, flush=True)
     return summary
 

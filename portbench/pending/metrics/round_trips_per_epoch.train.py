@@ -1,5 +1,5 @@
 """Rank 0's device-to-host round trips over the traced epoch
-(``Trainer.trace_counts()["host_round_trips"]``): one a window and one
+(the traced summary's ``counters["trainer"]["host_round_trips"]``): one a window and one
 for the tail.  Nothing to read where the program has no such count."""
 
 LAYER = "host loop (train/loop.py)"
@@ -10,7 +10,7 @@ SOURCE = "device_trace"
 
 
 def read(ctx):
-    counts = ctx.trace.get("trace_counts")
+    counts = ctx.trace.get("counters", {}).get("trainer")
     if counts is None:
         return None
     return float(counts["host_round_trips"])

@@ -1,14 +1,23 @@
 """The first training steps of a cell, written out in plain PyTorch.
 
 From the split and the seed alone: the sampler's order (one permutation
-of the split drawn from ``seed``, wrap-padded to a multiple of the world,
-rank r taking positions r::world, ``global_batch // world`` rows a step),
-the counter-keyed crop and flip of each rank's rows (``augment.py``), the
-forward in training mode (``model.py``), the f32 cross-entropy, the
-backward by autograd (the max pool's gradient to the first maximal element
-of its window, BN's through the batch statistics), the mean of the ranks'
-gradients, losses and BN running statistics, and SGD with L2 weight decay
-and momentum: d = g + wd p; v = mu v + d; p = p - lr v.
+of the epoch's examples drawn from ``seed``, wrap-padded to a multiple of
+the world, rank r taking positions r::world, ``global_batch // world``
+rows a step), each rank's inputs for its rows (the recipe's ``batch``:
+for CIFAR-10 the counter-keyed crop and flip of ``augment.py``), the
+architecture's forward in training mode (``arch/<architecture>.py``), the
+f32 cross-entropy over every row of the logits, the backward by autograd
+(the max pool's gradient to the first maximal element of its window, BN's
+through the batch statistics), the mean of the ranks' gradients, losses
+and state (BN running statistics), and SGD with L2 weight decay and
+momentum: d = g + wd p; v = mu v + d; p = p - lr v.
+
+A rank's rows go through the forward and the backward in chunks, each
+chunk's summed cross-entropy over the rank's number of targets, the
+gradients summed in f32: one chunk of all of them, or with the traffic's
+``reference_chunk_rows`` chunks of that many, the same gradient in less
+memory.  Only an architecture that keeps no batch statistics may be
+chunked (``chunk_rows``).
 
 ``precision`` says how the forward and backward compute:
 
@@ -16,37 +25,36 @@ and momentum: d = g + wd p; v = mu v + d; p = p - lr v.
   * ``"tf32"``: the control of an f32 cell: convolutions and matmuls in
     TF32 (the card's tensor-core f32 path);
   * ``"fp8"``: the control of a bf16 cell: every activation that the bf16
-    program stores in bf16 (``model.py``: the convolutions' and linear
-    layers' inputs, weights and outputs, BatchNorm's outputs, the residual
-    sums) rounded to float8 e4m3 instead, and each gradient that flows
-    back through them to e5m2, each with a per-tensor scale from its
-    largest magnitude (fp8 training's usual recipe); master weights,
-    statistics, the loss and the update in f32.
+    program stores in bf16 (the architecture's ``q``: for the CIFAR
+    classifiers the convolutions' and linear layers' inputs, weights and
+    outputs, BatchNorm's outputs, the residual sums) rounded to float8
+    e4m3 instead, and each gradient that flows back through them to e5m2,
+    each with a per-tensor scale from its largest magnitude (fp8
+    training's usual recipe); master weights, state, the loss and the
+    update in f32.
 
 What it returns is what the comparison reads (``Readings``): each step's
 loss, the per-leaf norms of the first step's gradient, of the parameters'
-change over the steps, and of the running statistics' change after the
-first step.
+change over the steps, and of the compared state's change after the
+first step (none where the architecture names no state).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, List, NamedTuple
+from typing import Iterator, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-
-from . import augment, model
 
 PRECISIONS = ("f32", "tf32", "fp8")
 
 
 class Readings(NamedTuple):
     """What both sides give the comparison, per leaf in registration
-    order: parameters for ``grad1`` and ``change``, the running means and
-    variances for ``stats_change1``."""
+    order: parameters for ``grad1`` and ``change``, the compared state
+    (the running means and variances) for ``stats_change1``."""
     losses: List[float]
     grad1: List[float]          # |first gradient| per parameter
     change: List[float]         # |p_steps - p_0| per parameter
@@ -96,18 +104,55 @@ def _tf32(on: bool) -> Iterator[None]:
          torch.backends.cuda.matmul.allow_tf32) = saved
 
 
-def run(images: np.ndarray, labels: np.ndarray, config: dict,
-        traffic: dict, seed: int, steps: int, device,
-        precision: str = "f32") -> Readings:
-    """The cell's first ``steps`` steps from ``seed`` on ``device``."""
+def chunk_rows(arch, traffic: dict) -> Optional[int]:
+    """The traffic's ``reference_chunk_rows``, or None; refused for an
+    architecture that keeps batch statistics, whose rows a chunk would
+    normalize apart."""
+    rows = traffic.get("reference_chunk_rows")
+    if rows is None:
+        return None
+    if arch.BATCH_STATISTICS:
+        raise ValueError("reference_chunk_rows is refused: the architecture "
+                         "keeps batch statistics")
+    if not isinstance(rows, int) or rows < 1:
+        raise ValueError(f"reference_chunk_rows must be a whole number >= 1, "
+                         f"got {rows!r}")
+    return rows
+
+
+def _loss_and_grads(arch, config, params, state, x, y, q, chunk):
+    """A rank's mean cross-entropy over its targets and its gradient,
+    summed in f32 over chunks of ``chunk`` rows (None: all the rank's rows
+    in one chunk)."""
+    chunk = chunk or x.shape[0]
+    targets = y.numel()
+    loss, grads = 0.0, None
+    for lo in range(0, x.shape[0], chunk):
+        logits = arch.forward(config, params, state, x[lo:lo + chunk], q)
+        part = F.cross_entropy(logits.float(),
+                               y[lo:lo + chunk].reshape(-1),
+                               reduction="sum") / targets
+        g = torch.autograd.grad(part, params)
+        grads = list(g) if grads is None else \
+            [a + b for a, b in zip(grads, g)]
+        loss = loss + part.detach()
+    return loss, grads
+
+
+def run(arch, recipe, split, config: dict, traffic: dict, seed: int,
+        steps: int, device, precision: str = "f32") -> Readings:
+    """The cell's first ``steps`` steps from ``seed`` on ``device``:
+    ``arch`` and ``recipe`` are the cell's plug-ins, ``split`` what the
+    recipe's ``read`` gave."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}")
+    chunk = chunk_rows(arch, traffic)
     world = traffic["world"]
     per = traffic["global_batch"] // world
     sgd = traffic["sgd"]
     q = _FP8.apply if precision == "fp8" else (lambda t: t)
-    streams = rank_rows(len(labels), world, seed)
-    params, stats = model.init(config, seed, device)
+    streams = rank_rows(recipe.examples(traffic["dataset"]), world, seed)
+    params, stats = arch.init(config, seed, device)
     for p in params:
         p.requires_grad_(True)
     p0 = [p.detach().clone() for p in params]
@@ -118,13 +163,11 @@ def run(images: np.ndarray, labels: np.ndarray, config: dict,
         gsum, lsum, ssum = None, 0.0, None
         for r in range(world):
             rows = streams[r][step * per:(step + 1) * per]
-            x = augment.transform(images[rows], seed, r, 0, step, device)
-            y = torch.from_numpy(labels[rows].astype(np.int64)).to(device)
+            x, y = recipe.batch(split, rows, traffic, seed, r, step, device)
             mine = [s.clone() for s in stats]
             with _tf32(precision == "tf32"):
-                logits = model.forward(config, params, mine, x, q)
-                loss = F.cross_entropy(logits.float(), y)
-                grads = torch.autograd.grad(loss, params)
+                loss, grads = _loss_and_grads(arch, config, params, mine, x,
+                                              y, q, chunk)
             gsum = list(grads) if gsum is None else \
                 [a + b for a, b in zip(gsum, grads)]
             ssum = mine if ssum is None else \

@@ -13,10 +13,11 @@ its configuration (``configs/<config>.json``), its training job
      checkout (a compile cache: only a checkout's first run compiles);
   3. per rank (the ranks of a multi-chip cell are processes of their own,
      one a card, over NCCL): makes the training split from ``--seed``
-     on the card and writes it in CIFAR-10's python format under
-     ``TMPDIR``, builds the program's ``Trainer`` on it, trains its first
-     steps through the window's own call and reads them for the
-     comparison, and warms one whole epoch;
+     on the card and writes it under ``TMPDIR`` in the program's files
+     (the traffic's recipe, ``recipes/<recipe>.py``), builds the
+     program's ``Trainer`` on it, trains its first steps through the
+     window's own call and reads them for the comparison, and warms one
+     whole epoch;
   4. measures whole epochs of ``Trainer.train_model`` until ``--seconds``
      have passed (``--trace 1``: then traces one more epoch);
   5. on rank 0, after the program is freed, runs the plain reference over
@@ -31,10 +32,8 @@ process to the first timed step.
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import os
-import re
 import shutil
 import socket
 import sys
@@ -43,7 +42,8 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
-from . import launch
+from . import launch, plugins
+from .plugins import NAME
 
 
 def process_start_time() -> float:
@@ -62,9 +62,9 @@ def process_start_time() -> float:
 
 T_PROCESS = process_start_time()
 
-ROOT = Path(__file__).resolve().parent
+ROOT = plugins.ROOT
 CHECKOUT = ROOT.parent
-NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+DEADLINE_S = 330.0
 END_TO_END = ("train_images_per_s", "setup_s")
 
 
@@ -80,11 +80,13 @@ def load_json(kind: str, name: str, root: Path = ROOT) -> dict:
 
 
 def load_cell(name: str, root: Path = ROOT) -> dict:
-    """The cell ``name`` with its configuration and traffic, by name."""
+    """The cell ``name`` with its configuration and traffic, by name, and
+    the ``root`` under which its plug-ins are found (``plugins.py``)."""
     cell = load_json("workloads", name, root)
     return {"name": name, "cell": cell,
             "config": load_json("configs", cell["config"], root),
-            "traffic": load_json("traffic", cell["traffic"], root)}
+            "traffic": load_json("traffic", cell["traffic"], root),
+            "root": Path(root)}
 
 
 def load_metrics(root: Path = ROOT) -> Dict[str, object]:
@@ -94,22 +96,22 @@ def load_metrics(root: Path = ROOT) -> Dict[str, object]:
         name = path.name[:-3]
         if not NAME.match(name) or name.startswith("_"):
             continue
-        spec = importlib.util.spec_from_file_location(
-            f"portbench_metric_{len(out)}", path)
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-        out[name] = module
+        out[name] = plugins.exec_file(path, f"portbench_metric_{len(out)}")
     return out
 
 
 class Context:
-    """What a per-layer metric reads: the cell, the measured rate, the
-    ranks' traced epochs (rank 0's first)."""
+    """What a per-layer metric reads: the cell (and the ``root`` of its
+    plug-ins, for the yardstick), the measured rate in examples a second
+    (``images_per_s``: an example is what the traffic's recipe counts),
+    the ranks' traced epochs (rank 0's first), each with the program's
+    ``counters`` over it."""
 
     def __init__(self, spec: dict, images_per_s: float, traces: List[dict],
                  per_rank_batch: int, rank_rows: int):
         self.config = spec["config"]
         self.traffic = spec["traffic"]
+        self.root = spec["root"]
         self.chips = spec["cell"]["chips"]
         self.images_per_s = images_per_s
         self.traces = traces
@@ -177,15 +179,19 @@ def _run_ranks(spec: dict, args, data_dir: str, device_type: str,
 
 
 def measure(spec: dict, args, device_type: str = "cuda",
-            deadline_s: float = 330.0, rank_target=None) -> dict:
+            deadline_s: Optional[float] = None, rank_target=None) -> dict:
     """One run of ``spec``'s cell: the result line as a dict, its last key
-    ``checks``.  ``rank_target``: what a spawned rank runs (the tests
-    plant faults through it)."""
+    ``checks``.  ``deadline_s``: how long the ranks of a multi-chip cell
+    may take (else the traffic's ``deadline_s``, else ``DEADLINE_S``).
+    ``rank_target``: what a spawned rank runs (the tests plant faults
+    through it)."""
     chips = spec["cell"]["chips"]
     world = spec["traffic"]["world"]
     if world != chips:
         raise ValueError(f"a cell runs one rank a chip: world {world}, "
                          f"chips {chips}")
+    if deadline_s is None:
+        deadline_s = spec["traffic"].get("deadline_s", DEADLINE_S)
     if device_type == "cuda":
         from cs744_ddp_tpu_torch.ops import _build
         t = time.time()
@@ -203,13 +209,14 @@ def measure(spec: dict, args, device_type: str = "cuda",
     from . import check, trace
     from .reference.steps import Readings
     r0 = ranks[0]
-    rate = sum(r["images"] for r in ranks) / r0["window_s"]
+    rate = sum(r["examples"] for r in ranks) / r0["window_s"]
     setup_s = r0["t0_wall"] - T_PROCESS
     _log(f"setup: {setup_s:.3f} s from process start; rank 0 "
          + ", ".join(f"{k} {v:.3f} s" for k, v in r0["marks"].items()))
     _log(f"window: {r0['epochs']} epoch(s), {r0['steps']} steps a rank, "
-         f"{sum(r['images'] for r in ranks)} images in {r0['window_s']:.4f} "
-         f"s (epochs {[round(e, 4) for e in r0['epoch_s']]}); reference "
+         f"{sum(r['examples'] for r in ranks)} examples in "
+         f"{r0['window_s']:.4f} s (epochs "
+         f"{[round(e, 4) for e in r0['epoch_s']]}); reference "
          f"{r0['reference_s']:.3f} s; program log "
          f"{r0['last_log']}")
     forbidden = sorted({m for r in ranks for m in r["forbidden"]})
@@ -229,7 +236,7 @@ def measure(spec: dict, args, device_type: str = "cuda",
         ctx = Context(spec, rate, traces, r0["per_rank_batch"],
                       r0["rank_rows"])
         metrics = {}
-        for name, reader in load_metrics().items():
+        for name, reader in load_metrics(spec["root"]).items():
             value = reader.read(ctx)
             if value is not None:
                 metrics[name] = {"value": value, "unit": reader.UNIT}
@@ -240,8 +247,9 @@ def measure(spec: dict, args, device_type: str = "cuda",
         result["breakdown"] = trace.breakdown(traces[0])
         _log(f"traced epoch, rank 0: families (us) "
              f"{ {k: round(v, 1) for k, v in traces[0]['families'].items()} }"
-             f"; bnpool runs {traces[0]['bnpool_runs']}; collectives a step "
-             f"{traces[0]['collectives_per_step']}")
+             f"; bnpool runs {traces[0]['counters'].get('bnpool')}; "
+             f"collectives a step {traces[0]['collectives_per_step']}; "
+             f"counters {traces[0]['counters']}")
     else:
         result["metrics"] = {
             "train_images_per_s": {"value": rate, "unit": "images/s"},

@@ -51,4 +51,4 @@ def small_spec(arch="vgg", precision="f32", world=1, batch=16, images=72,
     limits = _json("workloads", cell)["limits"]
     return {"name": "small", "config": config, "traffic": traffic,
             "cell": {"config": "small", "traffic": "small", "chips": world,
-                     "limits": limits}}
+                     "limits": limits}, "root": ROOT}

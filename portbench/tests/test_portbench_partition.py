@@ -124,8 +124,9 @@ def pending():
 def test_pending_metrics_read_a_summary(pending):
     assert set(pending) == set(PENDING)
     a = partition.summarize(HARNESS + LAUNCHES + KERNELS + RANGES)
-    a["trace_counts"] = {"host_round_trips": 2, "replays": 5, "captures": 0,
-                         "eager_steps": 1, "restages": 0}
+    a["counters"] = {"trainer": {"host_round_trips": 2, "replays": 5,
+                                 "captures": 0, "eager_steps": 1,
+                                 "restages": 0}}
     b = dict(a, partition={"tail": 25, "replay": 8, "window_edge": 3,
                            "harness": 0})
     got = {n: pending[n].read(_ctx(a, b)) for n in PENDING}
@@ -141,7 +142,7 @@ def test_pending_metrics_read_a_summary(pending):
 
 def test_pending_metrics_read_nothing_from_a_program_without_ranges(pending):
     old = trace.summarize(HARNESS + LAUNCHES + KERNELS)
-    old.update(bnpool_runs={}, collectives_per_step={})
+    old.update(collectives_per_step={})
     assert all(pending[n].read(_ctx(old)) is None for n in PENDING)
 
 
@@ -187,13 +188,13 @@ def test_traced_epoch_refuses_an_unsteady_epoch(extra):
     an eager step would put their work in the parts."""
     trainer = _Trainer(**extra)
     if not extra:
-        got = partition.traced_epoch(trainer, 1, lambda *a: False)
-        assert got["trace_counts"]["host_round_trips"] == 2
+        got = partition.traced_epoch(trainer, 1, lambda *a: False, 5)
+        assert got["counters"]["trainer"]["host_round_trips"] == 2
         assert got["ranges"]["window_dispatch"][0] == 1
         assert got["harness_agrees"] is True
         return
     with pytest.raises(RuntimeError, match="not a steady one"):
-        partition.traced_epoch(trainer, 1, lambda *a: False)
+        partition.traced_epoch(trainer, 1, lambda *a: False, 5)
 
 
 def _args(seed=2 ** 31 + 13, seconds=0.2):

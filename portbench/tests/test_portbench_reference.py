@@ -8,9 +8,8 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import check, data, worker
+from portbench import check, data, plugins, worker
 from portbench.reference import augment as raug
-from portbench.reference import model as rmodel
 from portbench.reference import steps as rsteps
 from portbench.tests.cells import narrow_models, small_spec  # noqa: F401
 
@@ -34,7 +33,8 @@ def test_initial_weights_are_the_programs(arch, narrow_models):
     spec = small_spec(arch)
     seed = 2 ** 31 + 9
     net = models.get_model(spec["config"]["port_model"], seed)
-    params, stats = rmodel.init(spec["config"], seed, "cpu")
+    arch = plugins.architecture(spec["config"])
+    params, stats = arch.init(spec["config"], seed, "cpu")
     theirs = list(net.parameters())
     assert [tuple(p.shape) for p in params] == \
         [tuple(p.shape) for p in theirs]
@@ -56,7 +56,8 @@ def test_first_steps_match_the_program(arch, seed, narrow_models):
     with tempfile.TemporaryDirectory() as d:
         worker.make_data(spec, seed, d, "cpu")
         trainer = worker.build_trainer(spec, seed, d, "cpu", [])
-        prog = worker.checked_steps(trainer, 3)
+        prog = worker.checked_steps(trainer, 3,
+                                    plugins.architecture(spec["config"]))
         ref = worker.reference_readings(spec, seed, d, "cpu")
     got = check.numbers(prog, ref)
     assert set(got) == {"loss_gap_1", "loss_gap_2", "loss_gap_3",
@@ -67,14 +68,15 @@ def test_first_steps_match_the_program(arch, seed, narrow_models):
 
 
 def test_split_files_round_trip():
-    split = data.synthetic_split(40, 2 ** 31 + 3)
-    again = data.synthetic_split(40, 2 ** 31 + 3)
+    recipe = plugins.load("recipes", "cifar10_synthetic")
+    split = recipe.synthetic_split(40, 2 ** 31 + 3)
+    again = recipe.synthetic_split(40, 2 ** 31 + 3)
     assert np.array_equal(split.images, again.images)
     assert split.images.shape == (40, 32, 32, 3)
     assert split.images.dtype == np.uint8 and split.labels.dtype == np.int32
     assert set(np.unique(split.labels)) <= set(range(10))
     with tempfile.TemporaryDirectory() as d:
-        data.write_cifar10(d, split, data.synthetic_split(8, 1))
+        data.write_cifar10(d, split, recipe.synthetic_split(8, 1))
         back = data.read_cifar10(d)
         from cs744_ddp_tpu_torch.data import cifar10
         train, _, real = cifar10.load(d)

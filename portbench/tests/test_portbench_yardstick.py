@@ -9,7 +9,9 @@ import pytest
 
 from portbench import trace, yardstick
 
-CONFIGS = Path(__file__).resolve().parents[1] / "configs"
+ROOT = Path(__file__).resolve().parents[1]
+CONFIGS = ROOT / "configs"
+TRAFFIC = json.loads((ROOT / "traffic" / "bf16_single_b256.json").read_text())
 
 
 def _config(name):
@@ -23,8 +25,8 @@ def test_vgg11_flops_hand_count():
     macs = sum(ci * 9 * co * h * h for ci, co, h in convs) + 512 * 10
     assert macs == 152_769_536
     cfg = _config("vgg11_bn_cifar10")
-    assert yardstick.model_macs_per_image(cfg) == macs
-    assert yardstick.model_flops_per_image(cfg) == 916_617_216
+    assert yardstick.model_macs_per_image(cfg, TRAFFIC) == macs
+    assert yardstick.model_flops_per_image(cfg, TRAFFIC) == 916_617_216
 
 
 def test_resnet18_flops_hand_count():
@@ -39,8 +41,8 @@ def test_resnet18_flops_hand_count():
         + stage(256, 512, 4) + 512 * 10
     assert macs == 555_422_720
     cfg = _config("resnet18_cifar10")
-    assert yardstick.model_macs_per_image(cfg) == macs
-    assert yardstick.model_flops_per_image(cfg) == 3_332_536_320
+    assert yardstick.model_macs_per_image(cfg, TRAFFIC) == macs
+    assert yardstick.model_flops_per_image(cfg, TRAFFIC) == 3_332_536_320
 
 
 @pytest.mark.parametrize("batch,precision,want", [

@@ -1,7 +1,8 @@
 """One rank of a cell: the program's Trainer built from the run's data and
 seed, its first steps read for the comparison, an epoch of warm-up, the
 measured window of whole epochs, optionally one traced epoch, and on rank
-0 the plain reference and the comparison.
+0 the plain reference and the comparison.  What depends on the model and
+the data comes from the cell's plug-ins (``plugins.py``).
 
 The program is ``cs744_ddp_tpu_torch``, imported here as a library: its
 ``Trainer`` (``train/loop.py``), whose ``train_model(epoch)`` trains the
@@ -13,32 +14,37 @@ window of whole epochs ends with no work queued.
 from __future__ import annotations
 
 import gc
+import importlib
+import pkgutil
 import time
 from typing import Dict, List, Optional
 
-from . import data, trace
+from . import plugins, trace
 from .launch import NoCard, check_cards, forbidden_modules
 from .reference import steps as refsteps
 
 
-def _state_leaves(trainer):
+def _state_leaves(trainer, arch):
+    """The parameters, and the buffers whose names end in one of the
+    architecture's ``CHECKED_STATE`` suffixes, in registration order."""
     model = trainer.state.model
     params = list(model.parameters())
-    stats = [b for n, b in model.named_buffers()
-             if n.endswith(("running_mean", "running_var"))]
+    names = tuple(getattr(arch, "CHECKED_STATE", ()))
+    stats = [b for n, b in model.named_buffers() if n.endswith(names)]
     return params, stats
 
 
-def checked_steps(trainer, steps: int) -> refsteps.Readings:
+def checked_steps(trainer, steps: int, arch) -> refsteps.Readings:
     """The Trainer's first ``steps`` steps of epoch 0, through the window's
     own call (the first captures the step on the card and replays it
     once), read as the comparison reads them: each step's loss from the
     window's drained rows, the first gradient from the momentum after one
-    step (v = g + wd p0), the change of the BN running statistics after
-    it, and the change of the parameters after the last."""
+    step (v = g + wd p0), the change of the state that ``arch`` names (the
+    BN running statistics) after it, and the change of the parameters
+    after the last."""
     import torch
     window = trainer.train_window()
-    params, stats = _state_leaves(trainer)
+    params, stats = _state_leaves(trainer, arch)
     p0 = [p.detach().clone() for p in params]
     s0 = [s.clone() for s in stats]
     wd = trainer.sgd_cfg.weight_decay
@@ -61,30 +67,58 @@ def checked_steps(trainer, steps: int) -> refsteps.Readings:
         stats1)
 
 
+# Trainer keywords that a traffic's ``program`` object may never give: the
+# harness's own, and those that change the epoch the rate counts or the
+# step the comparison checks.
+PROGRAM_REFUSED = frozenset({
+    "model", "strategy", "precision", "global_batch", "data_dir", "device",
+    "seed", "augment", "sgd_cfg", "reshuffle_each_epoch", "log",
+    "limit_train_batches", "compress_rank", "profile_phases", "ft",
+    "elastic", "host_augment", "telemetry"})
+# Those it may give whatever the architecture: eval, which a run never
+# reaches.
+PROGRAM_KEYS = ("limit_eval_batches",)
+
+
+def program_keywords(arch, traffic: dict) -> dict:
+    """The traffic's optional ``program`` object, the Trainer's extra
+    keyword arguments: each key in ``PROGRAM_KEYS`` or in the
+    architecture's own ``PROGRAM_KEYS``, and none in ``PROGRAM_REFUSED``;
+    any other is refused."""
+    given = traffic.get("program", {})
+    allowed = set(PROGRAM_KEYS) | set(getattr(arch, "PROGRAM_KEYS", ()))
+    bad = sorted(k for k in given
+                 if k in PROGRAM_REFUSED or k not in allowed)
+    if bad:
+        raise ValueError(f"the traffic's program keys {bad} are refused: "
+                         f"a run takes {sorted(allowed - PROGRAM_REFUSED)}")
+    return dict(given)
+
+
 def build_trainer(spec: dict, seed: int, data_dir: str, device, logs: list):
+    """The program's Trainer for the cell, with ``program_keywords``."""
     from cs744_ddp_tpu_torch.ops.sgd import SGDConfig
     from cs744_ddp_tpu_torch.train.loop import Trainer
     traffic = spec["traffic"]
+    extra = program_keywords(plugins.cell(spec)[0], traffic)
     return Trainer(
         model=spec["config"]["port_model"], strategy=traffic["strategy"],
         precision=traffic["precision"], global_batch=traffic["global_batch"],
         data_dir=data_dir, device=device, seed=seed,
         augment=traffic["augment"], sgd_cfg=SGDConfig(**traffic["sgd"]),
         reshuffle_each_epoch=traffic["reshuffle_each_epoch"],
-        log=logs.append)
+        log=logs.append, **extra)
 
 
 def make_data(spec: dict, seed: int, data_dir: str, device) -> None:
-    ds = spec["traffic"]["dataset"]
-    train = data.synthetic_split(ds["train_images"], seed, device)
-    test = data.synthetic_split(ds["test_images"], seed + 1, device)
-    data.write_cifar10(data_dir, train, test)
+    _, recipe = plugins.cell(spec)
+    recipe.make(spec["traffic"]["dataset"], seed, data_dir, device)
 
 
 def reference_readings(spec: dict, seed: int, data_dir: str, device,
                        precision: str = "f32") -> refsteps.Readings:
-    split = data.read_cifar10(data_dir)
-    return refsteps.run(split.images, split.labels, spec["config"],
+    arch, recipe = plugins.cell(spec)
+    return refsteps.run(arch, recipe, recipe.read(data_dir), spec["config"],
                         spec["traffic"], seed, spec["traffic"]["checked_steps"],
                         device, precision)
 
@@ -106,11 +140,46 @@ class _Stop:
         return bool(flag.item())
 
 
-def _traced_epoch(trainer, epoch: int, stop: _Stop) -> dict:
+def _counts(trainer) -> Dict[str, Dict[str, int]]:
+    """The program's counts so far: the Trainer's ``trace_counts()``, and
+    ``executed_counts()`` of every ``cs744_ddp_tpu_torch.ops`` submodule
+    that has one, by the submodule's name."""
+    from cs744_ddp_tpu_torch import ops
+    out = {"trainer": trainer.trace_counts()}
+    for info in pkgutil.iter_modules(ops.__path__):
+        if info.name.startswith("_"):
+            continue
+        module = importlib.import_module(f"{ops.__name__}.{info.name}")
+        if hasattr(module, "executed_counts"):
+            out[info.name] = module.executed_counts()
+    return out
+
+
+def steps_run(before: dict, after: dict) -> int:
+    """The training steps the program ran between two of its
+    ``trace_counts()``: its window's calls (graph replays on the card) and
+    its eager steps."""
+    return sum(after[k] - before[k] for k in ("replays", "eager_steps"))
+
+
+def check_plan(ran: int, epochs: int, plan: int) -> None:
+    """Refuse a run whose program trained other than ``plan`` steps an
+    epoch (the recipe's examples a rank in batches of the per-rank rows),
+    which is what the rate and the per-step metrics count."""
+    if ran != epochs * plan:
+        raise RuntimeError(
+            f"the program trained {ran} steps in {epochs} epoch(s); the "
+            f"recipe's epoch is {plan} steps a rank: the examples counted "
+            f"are not those trained")
+
+
+def _traced_epoch(trainer, epoch: int, stop: _Stop, plan: int) -> dict:
+    """One more whole epoch under the profiler: ``trace.summarize`` of it,
+    with ``counters`` (each of ``_counts``' sources, its change over the
+    epoch) and ``collectives_per_step``."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
-    from cs744_ddp_tpu_torch.ops import bnpool
-    before = bnpool.executed_counts()
+    before = _counts(trainer)
     activities = [ProfilerActivity.CPU]
     if trainer.device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
@@ -121,9 +190,12 @@ def _traced_epoch(trainer, epoch: int, stop: _Stop) -> dict:
                 trainer.train_model(epoch)
             with record_function(trace.SPAN + "rank_barrier"):
                 stop(0.0, 1.0)
-    after = bnpool.executed_counts()
+    after = _counts(trainer)
+    check_plan(steps_run(before["trainer"], after["trainer"]), 1, plan)
     summary = trace.summarize(prof.profiler.kineto_results.events())
-    summary["bnpool_runs"] = {k: after[k] - before[k] for k in after}
+    summary["counters"] = {
+        source: {k: v - before[source][k] for k, v in now.items()}
+        for source, now in after.items()}
     summary["collectives_per_step"] = {} if trainer.group is None else \
         dict(trainer.group.step_counts)
     return summary
@@ -139,6 +211,9 @@ def run_rank(rank: int, world: int, spec: dict, seed: int, seconds: float,
     from cs744_ddp_tpu_torch.parallel.mesh import (destroy_distributed,
                                                    initialize_distributed)
     marks = {"import": time.time() - t_import}
+    arch, recipe = plugins.cell(spec)
+    refsteps.chunk_rows(arch, spec["traffic"])    # refused before any work
+    program_keywords(arch, spec["traffic"])
     if world > 1:
         import torch.distributed as dist
         if device_type == "cuda":
@@ -165,7 +240,7 @@ def run_rank(rank: int, world: int, spec: dict, seed: int, seconds: float,
     marks["trainer"] = time.time() - t
     t = time.time()
     steps = spec["traffic"]["checked_steps"]
-    prog = checked_steps(trainer, steps)
+    prog = checked_steps(trainer, steps, arch)
     marks["checked_steps"] = time.time() - t
     t = time.time()
     trainer.train_model(0, start_step=steps)
@@ -174,6 +249,9 @@ def run_rank(rank: int, world: int, spec: dict, seed: int, seconds: float,
     stop(0.0, 1.0)                       # every rank here before the clock
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    rank_rows = -(-recipe.examples(spec["traffic"]["dataset"]) // world)
+    plan = -(-rank_rows // trainer.per_rank_batch)
+    before = trainer.trace_counts()
     t0_wall, t0 = time.time(), time.perf_counter()
     epoch, ends = 1, []
     while True:
@@ -184,11 +262,10 @@ def run_rank(rank: int, world: int, spec: dict, seed: int, seconds: float,
             break
     window_s = time.perf_counter() - t0
     epochs = epoch - 1
-    rows = len(trainer.train_split.labels)
-    rank_rows = -(-rows // world)
+    steps = steps_run(before, trainer.trace_counts())
+    check_plan(steps, epochs, plan)
     out = {"rank": rank, "t0_wall": t0_wall, "window_s": window_s,
-           "epochs": epochs, "images": epochs * rank_rows,
-           "steps": epochs * -(-rank_rows // trainer.per_rank_batch),
+           "epochs": epochs, "examples": epochs * rank_rows, "steps": steps,
            "marks": marks, "per_rank_batch": trainer.per_rank_batch,
            "epoch_s": [b - a for a, b in zip([0.0] + ends, ends)],
            "rank_rows": rank_rows, "program": prog._asdict(),
@@ -198,7 +275,7 @@ def run_rank(rank: int, world: int, spec: dict, seed: int, seconds: float,
         out["memory_peak_bytes"] = torch.cuda.max_memory_reserved(device)
         out["device_kind"] = torch.cuda.get_device_name(device)
     if traced:
-        out["trace"] = _traced_epoch(trainer, epoch, stop)
+        out["trace"] = _traced_epoch(trainer, epoch, stop, plan)
     out["last_log"] = logs[-2:]
     del trainer
     gc.collect()

@@ -4,11 +4,14 @@ turns a profiler's kernel intervals into device time.
 
 Nothing here reads a count the program makes: a later change to the
 program that fuses or splits operators leaves every number here as it is.
+What depends on the architecture comes from its plug-in
+(``arch/<architecture>.py``, found under ``root``).
 
-  * ``model_flops_per_image``: 2 x the multiply-accumulates of every
-    convolution and linear layer of the configuration, x 3 for the forward
-    and the backward pass (the input gradient and the weight gradient each
-    cost a forward's MACs).
+  * ``model_flops_per_image``: 2 x the multiply-accumulates of one
+    example's forward (the plug-in's ``macs_per_example``: for the CIFAR
+    classifiers every convolution and linear layer of an image), x 3 for
+    the forward and the backward pass (the input gradient and the weight
+    gradient each cost a forward's MACs).
   * ``bnpool_bwd_bytes``: the bytes the backward of the pool blocks'
     BN -> ReLU -> MaxPool needs: the pre-pool activation read once, the
     pooled gradient read once, dx written once, in the activation dtype;
@@ -21,7 +24,10 @@ program that fuses or splits operators leaves every number here as it is.
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict, Iterable, List, Tuple
+
+from . import plugins
 
 # NVIDIA H100 SXM data sheet, dense rates at 700 W.  Every precision's MFU
 # is taken against the bf16 tensor-core peak, so the yardstick never moves.
@@ -32,75 +38,34 @@ ITEMSIZE = {"f32": 4, "bf16": 2}
 _F32 = 4
 
 
-def _vgg_layers(config: dict) -> List[Tuple[str, int, int, int]]:
-    """(kind, in_ch, out_ch, spatial) for each conv of a VGG config, and
-    ("pool", ch, ch, spatial before the pool) for each pool."""
-    h = config["input"][0]
-    in_ch = config["input"][2]
-    out = []
-    for v in config["layers"]:
-        if v == "M":
-            out.append(("pool", in_ch, in_ch, h))
-            h //= 2
-        else:
-            out.append(("conv", in_ch, int(v), h))
-            in_ch = int(v)
-    return out
+def model_macs_per_image(config: dict, traffic: dict,
+                         root: Path = plugins.ROOT) -> int:
+    """Multiply-accumulates of one example's forward pass (an image of the
+    CIFAR classifiers), from the architecture's plug-in."""
+    return plugins.architecture(config, root).macs_per_example(config,
+                                                               traffic)
 
 
-def _vgg_macs(config: dict) -> int:
-    k = config["conv_kernel"]
-    macs = sum(cin * k * k * cout * h * h
-               for kind, cin, cout, h in _vgg_layers(config) if kind == "conv")
-    return macs + config["classifier"][0] * config["num_classes"]
-
-
-def _resnet_macs(config: dict) -> int:
-    h = config["input"][0]
-    cin = config["input"][2]
-    stem = config["stem_width"]
-    macs = cin * 9 * stem * h * h            # the 3x3 stem, stride 1
-    cin = stem
-    for width, stride, blocks in zip(config["widths"], config["strides"],
-                                     config["blocks_per_stage"]):
-        for b in range(blocks):
-            s = stride if b == 0 else 1
-            h_out = h // s
-            macs += cin * 9 * width * h_out * h_out       # conv1
-            macs += width * 9 * width * h_out * h_out     # conv2
-            if s != 1 or cin != width:
-                macs += cin * width * h_out * h_out       # 1x1 shortcut
-            cin, h = width, h_out
-    return macs + cin * config["num_classes"]
-
-
-_MACS = {"vgg": _vgg_macs, "resnet": _resnet_macs}
-
-
-def model_macs_per_image(config: dict) -> int:
-    """Multiply-accumulates of one image's forward pass."""
-    return _MACS[config["architecture"]](config)
-
-
-def model_flops_per_image(config: dict) -> int:
+def model_flops_per_image(config: dict, traffic: dict,
+                          root: Path = plugins.ROOT) -> int:
     """2 x MACs x 3 (forward, input gradient, weight gradient)."""
-    return 6 * model_macs_per_image(config)
+    return 6 * model_macs_per_image(config, traffic, root)
 
 
-def pool_block_shapes(config: dict) -> List[Tuple[int, int, int]]:
+def pool_block_shapes(config: dict, root: Path = plugins.ROOT
+                      ) -> List[Tuple[int, int, int]]:
     """(channels, height, width) before each pool of the fused
     BN -> ReLU -> MaxPool blocks; none for an architecture without them."""
-    if config["architecture"] != "vgg":
-        return []
-    return [(c, h, h) for kind, c, _, h in _vgg_layers(config)
-            if kind == "pool"]
+    arch = plugins.architecture(config, root)
+    return arch.pool_blocks(config) if hasattr(arch, "pool_blocks") else []
 
 
-def bnpool_bwd_bytes(config: dict, batch: int, precision: str) -> int:
+def bnpool_bwd_bytes(config: dict, batch: int, precision: str,
+                     root: Path = plugins.ROOT) -> int:
     """Bytes one step's pool-block backward needs at ``batch`` rows."""
     s = ITEMSIZE[precision]
     total = 0
-    for c, h, w in pool_block_shapes(config):
+    for c, h, w in pool_block_shapes(config, root):
         n = batch * c * h * w
         total += n * s + (n // 4) * s + n * s     # x read, dP read, dx
         total += 5 * c * _F32                     # gamma, beta, 1/sigma; sums
@@ -108,16 +73,17 @@ def bnpool_bwd_bytes(config: dict, batch: int, precision: str) -> int:
 
 
 def bnpool_bwd_bound_s(config: dict, batches: Iterable[int],
-                       precision: str) -> float:
+                       precision: str, root: Path = plugins.ROOT) -> float:
     """The least time at the HBM rate for the pool-block backward of every
     step in ``batches`` (each step's per-rank rows)."""
-    return sum(bnpool_bwd_bytes(config, b, precision)
+    return sum(bnpool_bwd_bytes(config, b, precision, root)
                for b in batches) / H100_HBM_BYTES_PER_S
 
 
-def mfu_pct(images_per_s_per_chip: float, config: dict) -> float:
-    return 100.0 * images_per_s_per_chip * model_flops_per_image(config) \
-        / H100_BF16_PEAK_FLOPS
+def mfu_pct(examples_per_s_per_chip: float, config: dict, traffic: dict,
+            root: Path = plugins.ROOT) -> float:
+    return 100.0 * examples_per_s_per_chip \
+        * model_flops_per_image(config, traffic, root) / H100_BF16_PEAK_FLOPS
 
 
 # Kernel families by name fragment, first match wins: cuDNN's own batch
