@@ -345,12 +345,27 @@ Phases, in order; any failure exits non-zero:
                ``ddp``: the real ``Group``'s counts, bytes and link record
                of one eager step and of one replay of the captured step
                equal to the audit's counted step of the same strategy;
- 16. report  — the ``kernels`` JSON line (each kernel in f32, with the
+ 16. moe     — the expert layer's grouped products (``ops/moe.py``, the
+               library's grouped GEMM) at the Moonlight cell's shapes
+               (2048 -> 2816 and 1408 -> 2048 over 8 held experts, in the
+               294,912-row buffer of 6 x 8,192 tokens): forward, dX and dW
+               through autograd against the plain version on the card
+               under mean, uneven, empty-group and one-hot loads (each
+               group within a bf16 rounding, rows past the groups and an
+               empty group's dW exactly zero); at the mean and one-hot
+               loads each product's CUDA-event ms, its library kernels'
+               device ms alone and its FLOP bound; then Moonlight at the
+               published widths (one dense and two expert layers, bf16,
+               4 x 2,048 tokens a step) trains one windowed epoch with the
+               products' device counters zeroed just before: their runs
+               a step, ``flops`` and ``rows`` as the steps imply;
+ 17. report  — the ``kernels`` JSON line (each kernel in f32, with the
                main path's runs, and in bf16, with the VGG-11 bf16 path's;
                ``launches_by_path`` also holds the host, elastic, serve,
-               serve_tier, publish, obs and audit paths' runs), the card's name
-               and power limit, and as the last line ``{"ok": true,
-               "device": {...}}``.
+               serve_tier, publish, obs and audit paths' runs; then the
+               grouped products of phase moe, route ``library``), the
+               card's name and power limit, and as the last line
+               ``{"ok": true, "device": {...}}``.
 
 Rendering: each run directory above goes through ``python -m
 cs744_ddp_tpu_torch.obs.report DIR`` and then ``DIR --json`` in a process
@@ -364,7 +379,8 @@ sections, each command's wall and ``render()``'s alone.  The CPU tests
 hold the module's output equal to the JAX package's
 ``tools/telemetry_report.py``, which needs JAX and is not run here.
 
-``--time-only`` runs phases 1 and 3 and stops.  ``--root DIR`` times the
+``--time-only`` runs phases 1 and 3 and stops; ``--moe`` runs phases 1
+and 16 and prints their ``kernels`` line.  ``--root DIR`` times the
 kernels of the checkout at DIR instead (for example the parent commit,
 unpacked with ``git archive``), so that two versions are compared in one
 run on one card.  ``--tune-dx`` runs phase 1, then times the dx kernel at
@@ -461,6 +477,35 @@ STEP_COUNTS = {
     "compress-bf16": {"all_reduce": 34},
     "compress-int8": {"all_reduce": 34, "all_reduce_max": 1},
     "powersgd": {"all_reduce": 2 * 9 + 25}}
+
+
+# Phase moe: the expert layer's grouped products (ops/moe.py) at the
+# Moonlight cell's shapes: gate-and-up (2048 -> 2 x 1408) and down
+# (1408 -> 2048) over the 8 experts a chip holds, in the buffer a layer
+# allocates for 6 x 8,192 tokens (each token's 6 experts: 294,912 rows).
+MOE_ROWS = 6 * 8192 * 6
+MOE_GROUPS = 8
+MOE_WIDTHS = ((2048, 2816), (1408, 2048))
+# Rows of each held expert; "mean" is uniform routing's 4,608 an expert.
+MOE_LOADS = {"mean": [4608] * 8,
+             "uneven": [9000, 13, 4608, 0, 12000, 517, 64, 10662],
+             "empty": [0, 0, 20000, 0, 0, 16864, 0, 0],
+             "one_hot": [0, 0, 0, 36864, 0, 0, 0, 0]}
+MOE_TIMED = ("mean", "one_hot")
+# Library against the plain version on the same bf16 operands: both round
+# f32 sums once to bf16 (dW: the library's bf16 against f32), so the
+# relative L2 gap of a group stays within a bf16 rounding; a row of
+# another group or an offset off by a tile reads as about 1.
+MOE_RTOL = 4e-3
+BF16_PEAK_FLOPS = 989.4e12      # H100 SXM dense bf16
+# The library's grouped GEMM in a trace: CUTLASS's grouped kernel and the
+# kernel that lays out the groups' problems from the device offsets (the
+# names portbench's grouped_mm_roofline_pct.train reads).
+GMM_FRAGMENTS = ("GroupProblemShape", "prepare_grouped_gemm_data")
+# The main path of phase moe: Moonlight at the published widths with one
+# dense and two expert layers, bf16, 4 sequences of 2,048 tokens a step,
+# one epoch of 24 sequences (6 steps: one captured window).
+MOE_LAYERS, MOE_SEQ, MOE_BATCH, MOE_SEQS = 3, 2048, 4, 24
 
 
 class SmokeFailure(RuntimeError):
@@ -4035,6 +4080,228 @@ def phase_audit(card_line):
     return {"audit": phase}
 
 
+def moe_operands(k, n, counts, seed):
+    """x [MOE_ROWS, k] and dy [MOE_ROWS, n] bf16, w [G, k, n] an f32
+    master, and the int32 offsets of ``counts`` on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(MOE_ROWS, k, generator=g, device="cuda").bfloat16()
+    w = torch.randn(MOE_GROUPS, k, n, generator=g, device="cuda") * 0.02
+    dy = torch.randn(MOE_ROWS, n, generator=g, device="cuda").bfloat16()
+    offsets = torch.zeros(MOE_GROUPS + 1, dtype=torch.int32)
+    offsets[1:] = torch.cumsum(torch.tensor(counts), 0)
+    return x, w, dy, offsets.cuda()
+
+
+def _rel(a, b) -> float:
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).norm() / b.norm())
+
+
+def check_grouped(k, n, load, errs):
+    """``moe.grouped_mm``'s forward, dX and dW through autograd against
+    the plain version on the card, group by group; rows past the groups
+    and the dW of an empty group exactly zero."""
+    from cs744_ddp_tpu_torch.ops import moe
+    counts = MOE_LOADS[load]
+    x, w, dy, offsets = moe_operands(k, n, counts, k + n + len(load))
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    y = moe.grouped_mm(xr, wr, offsets)
+    dx, dw = torch.autograd.grad(y, (xr, wr), dy)
+    check(dw.dtype == torch.float32, f"moe {load} {k}x{n}: dW {dw.dtype}")
+    wb = w.bfloat16()
+    plain = {"fwd": moe.grouped_mm_reference(x, wb, offsets),
+             "dx": moe.grouped_mm_reference(dy, wb.transpose(1, 2), offsets),
+             "dw": moe.grouped_dw_reference(x, dy, offsets, MOE_GROUPS)}
+    total, lo, worst = sum(counts), 0, {}
+    for name, t in (("fwd", y), ("dx", dx)):
+        check(int(torch.count_nonzero(t[total:])) == 0,
+              f"moe {load} {k}x{n}: {name} rows past the groups not zero")
+    for g, c in enumerate(counts):
+        if c == 0:
+            check(int(torch.count_nonzero(dw[g])) == 0,
+                  f"moe {load} {k}x{n}: dW of empty group {g} not zero")
+            continue
+        rows = slice(lo, lo + c)
+        for name, got, want in (("fwd", y[rows], plain["fwd"][rows]),
+                                ("dx", dx[rows], plain["dx"][rows]),
+                                ("dw", dw[g], plain["dw"][g])):
+            rel = _rel(got, want)
+            worst[name] = max(worst.get(name, 0.0), rel)
+            check(rel < MOE_RTOL, f"moe {load} {k}x{n}: {name} of group "
+                  f"{g} ({c} rows) {rel:.3e} from the plain version")
+        lo += c
+    for name, rel in worst.items():
+        errs[name] = max(errs[name], rel)
+    print(f"[moe] check {load} K={k} N={n} rows={total}: worst relative "
+          f"gap {json.dumps({v: float(f'{r:.3e}') for v, r in worst.items()})}"
+          f" (limit {MOE_RTOL})")
+
+
+def library_ms(fn, flush, evict, names):
+    """Median per call of the device time in the library's grouped-GEMM
+    kernels (``GMM_FRAGMENTS``), from torch.profiler's kernel records over
+    CLEAN_REPS calls, each after the L2 flush and eviction of
+    ``device_ms``; every kernel name seen is added to ``names``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        for _ in range(CLEAN_REPS):
+            flush.zero_()
+            evict.sum()
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+    us = 0.0
+    runs = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        names.add(e.name)
+        if any(f in e.name for f in GMM_FRAGMENTS):
+            us += e.time_range.elapsed_us()
+            runs += "GroupProblemShape" in e.name
+    check(runs >= CLEAN_REPS, f"the profiler saw {runs} grouped-GEMM "
+          f"kernels in {CLEAN_REPS} calls; kernels: {sorted(names)}")
+    return us / CLEAN_REPS / 1e3
+
+
+def time_grouped(k, n, load, flush, evict, names):
+    """Each product's CUDA-event ms (with the zeroing of the rows past the
+    groups), its library kernels' device ms alone, its FLOP bound at the
+    bf16 peak, and the plain version's ms."""
+    from cs744_ddp_tpu_torch.ops import moe
+    counts = MOE_LOADS[load]
+    x, w, dy, offsets = moe_operands(k, n, counts, k + n)
+    wb = w.bfloat16()
+    wt = wb.transpose(1, 2)
+    work = {"fwd": (lambda: moe._mm(x, wb, offsets, "fwd"),
+                    lambda: moe.grouped_mm_reference(x, wb, offsets)),
+            "dx": (lambda: moe._mm(dy, wt, offsets, "dx"),
+                   lambda: moe.grouped_mm_reference(dy, wt, offsets)),
+            "dw": (lambda: moe._dw(x, dy, offsets, MOE_GROUPS),
+                   lambda: moe.grouped_dw_reference(x, dy, offsets,
+                                                    MOE_GROUPS))}
+    bound = 2 * sum(counts) * k * n / BF16_PEAK_FLOPS * 1e3
+    out = {v: dict(ms=time_ms(fn, CLEAN_REPS, flush),
+                   plain_ms=time_ms(plain, 3, flush), bound_ms=bound)
+           for v, (fn, plain) in work.items()}
+    for v, (fn, _) in work.items():
+        out[v]["device_ms"] = library_ms(fn, flush, evict, names)
+    print(f"[moe] time {load} K={k} N={n} rows={sum(counts)}: " + "; ".join(
+        f"{v} {r['ms']:.4f} ms, device alone {r['device_ms']:.4f} "
+        f"({100 * r['bound_ms'] / r['device_ms']:.2f}% of peak), plain "
+        f"{r['plain_ms']:.4f}" for v, r in out.items()))
+    return out
+
+
+def moe_main_path():
+    """Moonlight at the published widths (``MOE_LAYERS`` layers) trains one
+    bf16 epoch through the Trainer's windowed path, the products' counters
+    zeroed just before: each product's runs a step on the device (2
+    forward, 1 recomputed forward, 2 dX, 2 dW an expert layer) over the
+    warm-up steps and the replays, ``flops`` 11 x 2048 x 2816 a held row,
+    and finite weights after it."""
+    from cs744_ddp_tpu_torch import models
+    from cs744_ddp_tpu_torch.data import tokens
+    from cs744_ddp_tpu_torch.models import moonlight
+    from cs744_ddp_tpu_torch.ops import moe
+    from cs744_ddp_tpu_torch.ops.sgd import SGDConfig
+    from cs744_ddp_tpu_torch.train import step as tstep
+    from cs744_ddp_tpu_torch.train.loop import Trainer
+
+    config = moonlight.MoonlightConfig(num_hidden_layers=MOE_LAYERS,
+                                       held_experts=MOE_GROUPS,
+                                       vocab_size=20480)
+    models.register_model("moonlight-smoke", moonlight.factory(config))
+    seqs = np.random.default_rng(0).integers(
+        0, config.vocab_size, (MOE_SEQS + 2, MOE_SEQ + 1)).astype(np.int32)
+    logs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tokens.write(tmp, seqs[:MOE_SEQS], seqs[MOE_SEQS:])
+        trainer = Trainer("moonlight-smoke", "single", precision="bf16",
+                          global_batch=MOE_BATCH, data_dir=tmp,
+                          device="cuda", seed=3, augment=False,
+                          sgd_cfg=SGDConfig(lr=0.001), log=logs.append)
+        before = trainer.trace_counts()
+        moe.reset_counts()
+        t0 = time.perf_counter()
+        trainer.train_model(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs = moe.executed_counts()
+        after = trainer.trace_counts()
+    d = {k: after[k] - before[k] for k in after}
+    steps = tstep.WARMUP_ITERS * d["captures"] + d["replays"] \
+        + d["eager_steps"]
+    layers = MOE_LAYERS - config.first_k_dense_replace
+    want = {"fwd": 2 * layers * steps, "fwd_recompute": layers * steps,
+            "dx": 2 * layers * steps, "dw": 2 * layers * steps}
+    check(steps == MOE_SEQS // MOE_BATCH + tstep.WARMUP_ITERS,
+          f"moe main path: {steps} steps run, counts {d}")
+    check({v: runs[v] for v in want} == want,
+          f"moe main path: runs {runs}, want {want}")
+    check(0 < runs["rows_max"] <= runs["rows"]
+          and runs["flops"] == 11 * 2048 * 2816 * runs["rows"],
+          f"moe main path: rows and flops {runs}")
+    check(all(torch.isfinite(p).all()
+              for p in trainer.state.model.parameters()),
+          "moe main path: non-finite weights")
+    print(f"[moe] main path: {steps} steps ({d['captures']} capture, "
+          f"{tstep.WARMUP_ITERS} warm-up steps, {d['replays']} replays, "
+          f"{d['eager_steps']} eager) in {wall:.2f} s; counted on the "
+          f"device {json.dumps(runs)}; log {logs[-1:] if logs else []}")
+    return runs, steps
+
+
+def phase_moe(card_line):
+    """The expert layer's grouped products: checked against the plain
+    version at the cell's shapes under every load of ``MOE_LOADS``,
+    timed at the mean and one-hot loads, then the main path's run.
+    Returns the ``kernels`` line's rows for forward, dX and dW."""
+    errs = {"fwd": 0.0, "dx": 0.0, "dw": 0.0}
+    for k, n in MOE_WIDTHS:
+        for load in MOE_LOADS:
+            check_grouped(k, n, load, errs)
+            gc.collect()
+            torch.cuda.empty_cache()
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    evict = torch.ones(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    names = set()
+    times = {(load, k, n): time_grouped(k, n, load, flush, evict, names)
+             for load in MOE_TIMED for k, n in MOE_WIDTHS}
+    print(f"[moe] kernels seen while timing: {sorted(names)}")
+    del flush, evict
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs, steps = moe_main_path()
+    rows = []
+    for v in ("fwd", "dx", "dw"):
+        mean = [times[("mean", k, n)][v] for k, n in MOE_WIDTHS]
+        rows.append({
+            "name": f"grouped_mm_{v}", "route": "library",
+            "source": "cs744_ddp_tpu_torch/ops/moe.py (torch._grouped_mm)",
+            "replaces": "none: the JAX package runs no expert layer",
+            "launches": runs[v], "max_abs_err": None,
+            "max_rel_err": errs[v],
+            "ms": sum(r["ms"] for r in mean),
+            "device_ms": sum(r["device_ms"] for r in mean),
+            "plain_ms": sum(r["plain_ms"] for r in mean),
+            "bound_ms": sum(r["bound_ms"] for r in mean),
+            "bound_by": "operations",
+            "library_ms": sum(r["ms"] for r in mean),
+            "wrapper_launches": None,
+            "launches_by_path": {"moe_main": runs[v]}})
+    print(f"[moe] {card_line}: ms, device_ms, plain_ms and bound_ms are one "
+          f"expert layer's two products of each kind (gate-and-up and "
+          f"down) at the mean load, {sum(MOE_LOADS['mean'])} held rows; "
+          f"launches the runs counted on the device in the main path's "
+          f"{steps} steps")
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--time-only", action="store_true",
@@ -4044,6 +4311,9 @@ def main(argv=None) -> int:
     parser.add_argument("--tune-dx", action="store_true",
                         help="build, time the dx kernel over partitions, "
                         "nothing else")
+    parser.add_argument("--moe", action="store_true",
+                        help="build, then run phase moe alone (the expert "
+                        "layer's grouped products and Moonlight's path)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; nothing was run",
@@ -4061,6 +4331,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.tune_dx:
         tune_dx(card_line)
+        return 0
+    if args.moe:
+        print(json.dumps({"kernels": phase_moe(card_line)}))
         return 0
     if args.time_only or args.root:
         from cs744_ddp_tpu_torch.ops import bnpool
@@ -4084,6 +4357,7 @@ def main(argv=None) -> int:
     by_path.update(phase_publish(card_line))
     by_path.update(phase_obs(card_line))
     by_path.update(phase_audit(card_line))
+    moe_rows = phase_moe(card_line)
 
     fused = ("none: cs744_ddp_tpu/ops/bnpool_pallas.py::_fwd_impl is plain "
              "JAX, fused by XLA")
@@ -4110,6 +4384,7 @@ def main(argv=None) -> int:
             "launches_by_path": {p: n[name + suffix]
                                  for p, n in by_path.items()}}
             for name in bnpool.BACKWARD + bnpool.FORWARD]
+    kernels += moe_rows
     print(f"[done] {time.perf_counter() - t_all:.1f} s; ms, device_ms, "
           f"plain_ms and bound_ms are per training step (5 pool blocks; "
           f"device_ms the device time alone, L2 clean); launches are "

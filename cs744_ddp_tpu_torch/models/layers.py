@@ -41,10 +41,12 @@ class Conv2d(nn.Conv2d):
 
 
 class Linear(nn.Linear):
-    """``nn.Linear`` computing in the activation's dtype."""
+    """``nn.Linear`` computing in the activation's dtype, with or without a
+    bias."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
 
 
 def conv2d(in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1,
@@ -96,9 +98,13 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """PyTorch-default initialization drawn from ``generator``: conv and
     linear weights and biases U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (what
     ``kaiming_uniform_(a=sqrt(5))`` reduces to); BatchNorm gamma 1, beta 0,
-    running mean 0, running var 1."""
+    running mean 0, running var 1.  A module with a ``draw_parameters``
+    method draws its own tensors from ``generator`` instead (the
+    Moonlight layers: ``models/moonlight.py``), in the same module order."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if hasattr(m, "draw_parameters"):
+            m.draw_parameters(generator)
+        elif isinstance(m, (nn.Conv2d, nn.Linear)):
             bound = 1.0 / (m.weight[0].numel() ** 0.5)
             m.weight.uniform_(-bound, bound, generator=generator)
             if m.bias is not None:

@@ -91,6 +91,7 @@ import torch.distributed as dist
 from .. import models as model_zoo
 from ..analysis.stats import collective_chain_depth
 from ..data import cifar10, native, sharding
+from ..data import tokens as token_data
 from ..device import resolve_device, set_f32_parity
 from ..elastic.protocol import (PROTOCOLS, ElasticConfig, flat_meta,
                                 plan_resume)
@@ -157,9 +158,32 @@ def _eval_batches(split: cifar10.Split, global_batch: int
         labs = split.labels[start:start + global_batch]
         if len(labs) < global_batch:
             pad = global_batch - len(labs)
-            imgs = np.concatenate([imgs, np.zeros((pad, 32, 32, 3), np.uint8)])
-            labs = np.concatenate([labs, np.full((pad,), -1, np.int32)])
+            imgs = np.concatenate([imgs, np.zeros((pad,) + imgs.shape[1:],
+                                                  imgs.dtype)])
+            labs = np.concatenate([labs, np.full((pad,) + labs.shape[1:], -1,
+                                                 np.int32)])
         yield imgs, labs
+
+
+def _check_tokens(model: str, *, augment, host_augment: bool, elastic,
+                  profile_phases: bool) -> None:
+    """Refuse what a token model's Trainer does not do, each with its
+    reason."""
+    refused = []
+    if augment:
+        refused.append("augment (crop and flip are image transforms; pass "
+                       "augment=False)")
+    if host_augment:
+        refused.append("host_augment (the C++ pipeline augments images)")
+    if elastic is not None:
+        refused.append("elastic (resizing the world needs the expert "
+                       "exchange across ranks)")
+    if profile_phases:
+        refused.append("profile_phases (a token model trains on the "
+                       "windowed path)")
+    if refused:
+        raise ValueError(f"{model} is a token model; refused: "
+                         + "; ".join(refused))
 
 
 def _silent(_: str) -> None:
@@ -351,7 +375,14 @@ class Trainer:
 
     ``telemetry``: the recorder (``obs.Telemetry``), kept on rank 0 alone
     (the others get ``NULL``, as the reference's one controller writes one
-    stream); the manifest is written here."""
+    stream); the manifest is written here.
+
+    A token model (``models.input_kind(model) == "tokens"``, e.g.
+    ``moonlight-16b-a3b-ep8``) reads its split from ``data_dir``
+    (``data/tokens.py``), stages its sequences on the device as the image
+    path stages images, and trains on the loss over every position; it
+    runs at world 1 on the windowed path, without augmentation, the host
+    pipeline, elastic resizing or the per-step path (``_check_tokens``)."""
 
     def __init__(self, model: str = "vgg11", strategy: str = "allreduce", *,
                  precision: str = "f32",
@@ -371,6 +402,12 @@ class Trainer:
                  telemetry=NULL):
         if host_chunks < 1:
             raise ValueError(f"host_chunks must be >= 1, got {host_chunks}")
+        tokens = model_zoo.input_kind(model) == "tokens"
+        if tokens:
+            _check_tokens(model, augment=augment, host_augment=host_augment,
+                          elastic=elastic, profile_phases=profile_phases)
+        # What the step's ``prepare`` does with a batch (AUGMENT_MODES).
+        self._input_mode = "tokens" if tokens else augment
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of "
                              f"{sorted(PRECISIONS)}, got {precision!r}")
@@ -439,6 +476,10 @@ class Trainer:
                 initialize_distributed(device=self.device)
             self.group = Group(self.device)
             self.world, self.rank = self.group.world, self.group.rank
+        if tokens and self.world > 1:
+            raise ValueError(f"{model} trains at world 1 only (its expert "
+                             f"exchange across ranks is not built), got "
+                             f"world {self.world}")
         if self.device.type == "cuda":
             self.device = torch.device("cuda", torch.cuda.current_device())
             set_f32_parity()
@@ -468,8 +509,12 @@ class Trainer:
             self.log("elastic strong: deterministic cuDNN turned on (the "
                      "update must be bitwise the same at every world)")
 
-        self.train_split, self.test_split, self.real_data = \
-            cifar10.load(data_dir)
+        if tokens:
+            self.train_split, self.test_split = token_data.load(data_dir)
+            self.real_data = True
+        else:
+            self.train_split, self.test_split, self.real_data = \
+                cifar10.load(data_dir)
         # The script prints len(loader), the per-rank batch count; its test
         # loader takes the per-rank batch over the whole test set.
         per_rank_samples = -(-len(self.train_split.labels) // self.world)
@@ -488,14 +533,16 @@ class Trainer:
         # With host_augment the per-step path and the ragged tail take the
         # host pipeline's f32 batches, and the window its uint8 ones.
         self.train_step = steplib.make_train_step(
-            net, strat, sgd_cfg, augment="host" if host_augment else augment,
-            **step_kw)
+            net, strat, sgd_cfg,
+            augment="host" if host_augment else self._input_mode, **step_kw)
         self._window_body = self._make_window_body(
             net, strat, self.group, shared=self.train_step.body,
             nonfinite_chaos_steps=self._nf_chaos_steps)
         self.forward_step = steplib.make_forward_step(
-            net, self.group, dtype, augment="host" if host_augment else False)
-        self.evaluate = steplib.make_eval_window(net, self.group, dtype)
+            net, self.group, dtype, augment="host" if host_augment
+            else ("tokens" if tokens else False))
+        self.evaluate = steplib.make_eval_window(net, self.group, dtype,
+                                                 tokens=tokens)
         self.host_round_trips = 0
         # Eager training steps (the ragged tail, the per-step path) and
         # stagings of an epoch's batches: with the window's replays and
@@ -739,8 +786,8 @@ class Trainer:
             return self._staged_train[1]
         self.restages += 1
         nfull, per = cols.shape
-        images = torch.from_numpy(
-            split.images[cols.reshape(-1)].reshape(nfull, per, 32, 32, 3))
+        images = torch.from_numpy(split.images[cols.reshape(-1)].reshape(
+            nfull, per, *split.images.shape[1:]))
         labels = torch.from_numpy(
             split.labels[cols].astype(np.int64))
         tail = None
@@ -811,7 +858,7 @@ class Trainer:
             staged = self._staged_buffers()
             self._fwd_window = steplib.FwdWindow(
                 self.state.model, staged.images, staged.labels,
-                augment=self.augment, group=self.group, seed=self.seed,
+                augment=self._input_mode, group=self.group, seed=self.seed,
                 compute_dtype=self.compute_dtype)
         return self._fwd_window
 
@@ -1790,6 +1837,8 @@ class Trainer:
         n = len(self.test_split.labels)
         if self.limit_eval_batches is not None:
             n = min(n, self.limit_eval_batches * self.global_batch)
+        # A token model's targets are its sequences' positions.
+        n *= int(np.prod(self.test_split.labels.shape[1:]))
         avg_loss = float(loss_sum) / n
         correct = int(correct)
         acc = 100.0 * correct / n
@@ -2142,7 +2191,7 @@ class Trainer:
             return shared
         return steplib.make_step_body(
             net, strat, self.sgd_cfg,
-            augment="host_u8" if self.host_augment else self.augment,
+            augment="host_u8" if self.host_augment else self._input_mode,
             group=group, seed=self.seed, compute_dtype=self.compute_dtype,
             nonfinite_guard=self._guard_on, **step_kw)
 

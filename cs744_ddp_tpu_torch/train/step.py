@@ -35,6 +35,10 @@ snapshot and restore are the same as in f32.
 Training-mode BN uses the rank's own batch statistics.  The ``single``
 strategy is the plain step with no process group, as the reference's
 Part 1 has no ``torch.distributed`` code.
+
+A token model (``augment="tokens"``) takes int ids [B, S] as they are,
+is handed the activation dtype, and returns logits [B * S, V]; its loss is
+the mean over every position (the labels [B, S] flattened alike).
 """
 
 from __future__ import annotations
@@ -113,15 +117,21 @@ def state_tensors(state: TrainState) -> List[torch.Tensor]:
 
 
 @contextlib.contextmanager
-def preserved(tensors: Sequence[torch.Tensor]) -> Iterator[None]:
-    """Restore ``tensors`` in place, bit for bit, when the block ends."""
+def preserved(tensors: Sequence[torch.Tensor]
+              ) -> Iterator[Callable[[], None]]:
+    """Restore ``tensors`` in place, bit for bit, when the block ends.  The
+    block gets ``restore``, which does the same at once: one snapshot
+    serves any number of restores."""
     saved = [t.clone() for t in tensors]
-    try:
-        yield
-    finally:
+
+    def restore() -> None:
         with torch.no_grad():
             for t, s in zip(tensors, saved):
                 t.copy_(s)
+    try:
+        yield restore
+    finally:
+        restore()
 
 
 def apply_strategy(strategy, grads, group: Group, comm):
@@ -163,8 +173,9 @@ def copy_comm(comm: Dict, new_comm: Dict,
 #   "host_u8" uint8, cropped and flipped by the C++ host pipeline (the
 #             windowed host path's staged format): the pipeline's own
 #             affine normalize on the device (``aug.normalize_affine``), so
-#             the step sees bit for bit what "host" hands it.
-AUGMENT_MODES = (True, False, "host", "host_u8")
+#             the step sees bit for bit what "host" hands it;
+#   "tokens"  a token model's int ids [B, S]: passed through.
+AUGMENT_MODES = (True, False, "host", "host_u8", "tokens")
 
 
 def _check_augment(augment) -> None:
@@ -173,10 +184,27 @@ def _check_augment(augment) -> None:
                          f"{augment!r}")
 
 
-def _input_stats(augment, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The per-channel constants ``prepare`` takes for ``augment``."""
+def _input_stats(augment, device
+                 ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """The per-channel constants ``prepare`` takes for ``augment`` (none
+    for token ids)."""
+    if augment == "tokens":
+        return None
     return aug.affine_stats(device) if augment == "host_u8" \
         else aug.channel_stats(device)
+
+
+def logits_and_targets(model: nn.Module, x: torch.Tensor,
+                       labels: torch.Tensor, tokens: bool,
+                       compute_dtype: Optional[torch.dtype]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The model's logits of the prepared input ``x`` and the labels they
+    answer: an image model computes in x's dtype (``prepare`` cast it); a
+    token model is handed the activation dtype, and its labels [B, S] are
+    flattened as its logits [B * S, V] are."""
+    if tokens:
+        return model(x, compute_dtype), labels.reshape(-1)
+    return model(x), labels
 
 
 def prepare(images: torch.Tensor, augment, key: int,
@@ -188,7 +216,10 @@ def prepare(images: torch.Tensor, augment, key: int,
     in f32, as ``augment`` (``AUGMENT_MODES``) says; then cast to
     ``compute_dtype`` (None: stays f32), as the reference's
     ``fold_and_prepare`` casts after the transform.  ``micro`` keys the
-    draws of an elastic microshard (``aug.draws``)."""
+    draws of an elastic microshard (``aug.draws``).  Token ids are passed
+    through as they are."""
+    if augment == "tokens":
+        return images
     if augment == "host":
         x = images
     elif augment == "host_u8":
@@ -279,6 +310,7 @@ def make_step_body(model: nn.Module, strategy=strategies.local,
         if hasattr(strategy, "attach") else None
     key = _stream_key(seed, group)
     norm = _input_stats(augment, _device_of(model))
+    tokens = augment == "tokens"
     guard = None
     if nonfinite_guard:
         guard = ftguard.StepGuard(list(model.buffers()), params,
@@ -292,7 +324,8 @@ def make_step_body(model: nn.Module, strategy=strategies.local,
         x = prepare(images_u8, augment, key, epoch, idx, norm,
                     compute_dtype)
         model.train()
-        loss = cross_entropy(model(x), labels)
+        loss = cross_entropy(*logits_and_targets(model, x, labels, tokens,
+                                                 compute_dtype))
         comm = new_comm = None
         if single:
             grads = torch.autograd.grad(loss, params)
@@ -389,10 +422,10 @@ def make_forward_body(model: nn.Module, *, augment=True,
     def fwd(images_u8: torch.Tensor, labels: torch.Tensor,
             epoch: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         model.train()
-        loss = cross_entropy(
-            model(prepare(images_u8, augment, key, epoch, idx, norm,
-                          compute_dtype)),
-            labels)
+        loss = cross_entropy(*logits_and_targets(
+            model, prepare(images_u8, augment, key, epoch, idx, norm,
+                           compute_dtype),
+            labels, augment == "tokens", compute_dtype))
         if group is not None and group.world > 1:
             loss = loss.reshape(1)
             mean_over_ranks([loss], group)
@@ -478,10 +511,12 @@ class GraphStep:
         counts = self._collectives()
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side), preserved(tensors):
+        # One snapshot, restored after every warm-up iteration: a second
+        # copy of the state would cost as much memory as the state.
+        with torch.cuda.stream(side), preserved(tensors) as restore:
             for _ in range(WARMUP_ITERS):
-                with preserved(tensors):
-                    self.fn()
+                self.fn()
+                restore()
         torch.cuda.current_stream(self.device).wait_stream(side)
         self._rewind(counts)
         graph = torch.cuda.CUDAGraph()
@@ -718,16 +753,17 @@ class FwdWindow(_Window):
 
 
 def make_eval_window(model: nn.Module, group: Optional[Group] = None,
-                     compute_dtype: Optional[torch.dtype] = None
-                     ) -> Callable:
+                     compute_dtype: Optional[torch.dtype] = None,
+                     tokens: bool = False) -> Callable:
     """evaluate(images [T,b,32,32,3] uint8, labels [T,b]) -> (loss_sum,
     correct): the reference's ``make_eval_window``, the whole staged test
     set with running statistics in BN, the normalized input cast to
     ``compute_dtype``, over the examples with label >= 0 (label -1 marks
     padding; counts from f32 logits), accumulated on the device and summed
     over the ranks by ONE all-reduce at the end.  Nothing is
-    synchronised."""
-    norm = aug.channel_stats(_device_of(model))
+    synchronised.  ``tokens``: a token model's ids [T,b,S] and targets
+    [T,b,S], counted a position at a time."""
+    norm = None if tokens else aug.channel_stats(_device_of(model))
 
     @torch.no_grad()
     def evaluate(images: torch.Tensor, labels: torch.Tensor
@@ -736,9 +772,10 @@ def make_eval_window(model: nn.Module, group: Optional[Group] = None,
         loss_sum = torch.zeros((), dtype=torch.float32, device=images.device)
         correct = torch.zeros((), dtype=torch.int64, device=images.device)
         for t in range(images.shape[0]):
-            logits = model(aug.cast(aug.to_model_input(
-                aug.normalize(images[t], norm)), compute_dtype))
-            ls, c = masked_eval_counts(logits, labels[t])
+            x = images[t] if tokens else aug.cast(aug.to_model_input(
+                aug.normalize(images[t], norm)), compute_dtype)
+            ls, c = masked_eval_counts(*logits_and_targets(
+                model, x, labels[t], tokens, compute_dtype))
             loss_sum += ls
             correct += c
         if group is None or group.world == 1:
