@@ -358,7 +358,16 @@ Phases, in order; any failure exits non-zero:
                published widths (one dense and two expert layers, bf16,
                4 x 2,048 tokens a step) trains one windowed epoch with the
                products' device counters zeroed just before: their runs
-               a step, ``flops`` and ``rows`` as the steps imply;
+               a step, ``flops`` and ``rows`` as the steps imply, and
+               the row kernels' ``row_rows`` (7 x ``rows``) and
+               ``row_capacity`` (7 launches a layer-step of the static
+               rows); before it the row kernels
+               (``ops/csrc/moe_rows.cu``) at the cell's shapes (49,152
+               tokens' top 6, hidden 2048, expert width 1408) under
+               uniform routing's 36,864 held rows and the heaviest seen
+               in the cell, 42,416: each checked against its plain
+               version, its CUDA-event ms, its device ms alone beside
+               its byte bound at 3.35 TB/s, and the plain version's ms;
  17. report  — the ``kernels`` JSON line (each kernel in f32, with the
                main path's runs, and in bf16, with the VGG-11 bf16 path's;
                ``launches_by_path`` also holds the host, elastic, serve,
@@ -502,6 +511,12 @@ BF16_PEAK_FLOPS = 989.4e12      # H100 SXM dense bf16
 # kernel that lays out the groups' problems from the device offsets (the
 # names portbench's grouped_mm_roofline_pct.train reads).
 GMM_FRAGMENTS = ("GroupProblemShape", "prepare_grouped_gemm_data")
+# The row kernels of phase moe at the cell's shapes: 6 x 8,192 tokens' top
+# 6 (MOE_ROWS rows), hidden 2048, expert width 1408; held rows a
+# layer-step: uniform routing's 36,864 and the heaviest load the cell has
+# shown, 42,416 (PERF.md section 4), placed at random among the rows.
+MOE_TOKENS, MOE_TOP_K, MOE_HIDDEN, MOE_WIDTH = 6 * 8192, 6, 2048, 1408
+MOE_ROW_LOADS = {"mean": 36864, "heaviest": 42416}
 # The main path of phase moe: Moonlight at the published widths with one
 # dense and two expert layers, bf16, 4 sequences of 2,048 tokens a step,
 # one epoch of 24 sequences (6 steps: one captured window).
@@ -4197,6 +4212,125 @@ def time_grouped(k, n, load, flush, evict, names):
     return out
 
 
+def moe_routing(held, seed):
+    """(token, offsets, inv, weight) on the card: ``held`` of the
+    MOE_ROWS flat rows, at random, spread evenly over the held experts,
+    the rest of no group; router weights in (0, 2.446)."""
+    from cs744_ddp_tpu_torch.ops import moe
+    gen = torch.Generator().manual_seed(seed)
+    group = torch.full((MOE_ROWS,), MOE_GROUPS, dtype=torch.int64)
+    group[torch.randperm(MOE_ROWS, generator=gen)[:held]] = \
+        torch.arange(held) % MOE_GROUPS
+    order, offsets, inv = moe.sort_rows(group.cuda(), MOE_GROUPS)
+    weight = torch.where(group < MOE_GROUPS,
+                         torch.rand(MOE_ROWS, generator=gen) * 2.446, 0.0)
+    token = torch.div(order, MOE_TOP_K, rounding_mode="floor")
+    return token, offsets, inv, weight.cuda().index_select(0, order)
+
+
+def _bf16_ulps(a, b) -> int:
+    def ordered(t):
+        i = t.view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def time_rows(load, flush, evict):
+    """The row kernels at ``MOE_ROW_LOADS[load]`` held rows: each checked
+    against its plain version on the held rows (gathers bitwise, bf16
+    outputs within one bf16 step, f32 sums within 1e-5 of the plain
+    version's norm), then its
+    CUDA-event ms, its device ms alone, its byte bound (each input byte the
+    held rows need read once, each output byte written once) at 3.35 TB/s
+    and the plain version's ms.  {kernel: numbers}."""
+    from cs744_ddp_tpu_torch.ops import moe
+    held = MOE_ROW_LOADS[load]
+    token, offsets, inv, weight = moe_routing(held, 23)
+    g = torch.Generator(device="cuda").manual_seed(24)
+    t, h, i = MOE_TOKENS, MOE_HIDDEN, MOE_WIDTH
+    x = torch.randn(t, h, generator=g, device="cuda").bfloat16()
+    dout = torch.randn(t, h, generator=g, device="cuda")
+    gu = (torch.randn(MOE_ROWS, 2 * i, generator=g, device="cuda") * 2
+          ).bfloat16()
+    dh_unit = (torch.randn(MOE_ROWS, i, generator=g, device="cuda") * 0.1
+               ).bfloat16()
+    ys = torch.randn(MOE_ROWS, h, generator=g, device="cuda").bfloat16()
+    bf16 = torch.bfloat16
+    distinct = int(token[:held].unique().numel())
+    work = {
+        "gather_rows": (
+            lambda: moe.gather_rows(x, token, offsets, bf16),
+            lambda: moe.gather_rows_reference(x, token, offsets, bf16),
+            distinct * h * 2 + held * (h * 2 + 8)),
+        "gather_rows_f32": (
+            lambda: moe.gather_rows(dout, token, offsets, bf16),
+            lambda: moe.gather_rows_reference(dout, token, offsets, bf16),
+            distinct * h * 4 + held * (h * 2 + 8)),
+        "swiglu_rows": (
+            lambda: moe.swiglu_rows(gu, i, offsets),
+            lambda: moe.swiglu_rows_reference(gu, i, offsets),
+            held * 3 * i * 2),
+        "combine_tokens": (
+            lambda: moe.combine_tokens(ys, weight, token, inv, offsets, t),
+            lambda: moe.combine_tokens_reference(ys, weight, token, inv,
+                                                 offsets, t),
+            held * (h * 2 + 4) + MOE_ROWS * 4 + t * h * 4),
+        "combine_token_grads": (
+            lambda: moe.combine_token_grads(ys, token, inv, offsets, t,
+                                            bf16),
+            lambda: moe.combine_token_grads_reference(ys, token, inv,
+                                                      offsets, t, bf16),
+            held * h * 2 + MOE_ROWS * 4 + t * h * 2),
+        "rows_backward": (
+            lambda: moe.rows_backward(gu, dh_unit, weight, offsets),
+            lambda: moe.rows_backward_reference(gu, dh_unit, weight,
+                                                offsets),
+            held * (6 * i * 2 + 4) + MOE_ROWS * 4)}
+    gaps = {}
+    for name, (fn, plain, _) in work.items():
+        got, want = fn(), plain()
+        if name.startswith("combine_token"):
+            got, want = [got], [want]
+        elif not isinstance(got, tuple):
+            got, want = [got[:held]], [want[:held]]
+        else:
+            got = [got[0]] + [v[:held] for v in got[1:]]
+            want = [want[0]] + [v[:held] for v in want[1:]]
+        for a, b in zip(got, want):
+            check(bool(torch.isfinite(a).all()), f"moe rows {load}: {name} "
+                  f"not finite")
+            if a.dtype == torch.float32:
+                gap = _rel(a, b)
+                check(gap < 1e-5, f"moe rows {load}: {name} {gap:.3e} from "
+                      f"the plain version")
+            else:
+                gap = _bf16_ulps(a, b)
+                check(gap <= (0 if name.startswith("gather") else 1),
+                      f"moe rows {load}: {name} {gap} bf16 steps from the "
+                      f"plain version")
+            gaps[name] = max(gaps.get(name, 0), gap)
+        del got, want
+    out = {}
+    for name, (fn, plain, nbytes) in work.items():
+        fragment = moe.PROFILED[name.replace("_f32", "")]
+        out[name] = dict(
+            ms=time_ms(fn, CLEAN_REPS, flush),
+            device_ms=device_ms(fn, fragment, flush, evict),
+            plain_ms=time_ms(plain, 3, flush),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes,
+            gap=gaps[name])
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[moe] rows {load} held={held} of {MOE_ROWS} (distinct tokens "
+          f"{distinct}): " + "; ".join(
+              f"{v} {r['ms']:.4f} ms, device alone {r['device_ms']:.4f} "
+              f"(bound {r['bound_ms']:.4f}, "
+              f"{100 * r['bound_ms'] / r['device_ms']:.1f}%), plain "
+              f"{r['plain_ms']:.4f}, gap {r['gap']}"
+              for v, r in out.items()))
+    return out
+
+
 def moe_main_path():
     """Moonlight at the published widths (``MOE_LAYERS`` layers) trains one
     bf16 epoch through the Trainer's windowed path, the products' counters
@@ -4246,14 +4380,21 @@ def moe_main_path():
     check(0 < runs["rows_max"] <= runs["rows"]
           and runs["flops"] == 11 * 2048 * 2816 * runs["rows"],
           f"moe main path: rows and flops {runs}")
+    slots = MOE_BATCH * MOE_SEQ * config.num_experts_per_tok
+    check(runs["row_rows"] == 7 * runs["rows"]
+          and runs["row_capacity"] == 7 * layers * steps * slots,
+          f"moe main path: row kernels' rows {runs}, want 7 launches a "
+          f"layer-step of {slots} static rows")
+    launched = moe.launch_counts()
     check(all(torch.isfinite(p).all()
               for p in trainer.state.model.parameters()),
           "moe main path: non-finite weights")
     print(f"[moe] main path: {steps} steps ({d['captures']} capture, "
           f"{tstep.WARMUP_ITERS} warm-up steps, {d['replays']} replays, "
           f"{d['eager_steps']} eager) in {wall:.2f} s; counted on the "
-          f"device {json.dumps(runs)}; log {logs[-1:] if logs else []}")
-    return runs, steps
+          f"device {json.dumps(runs)}; row kernels' launches {launched}; "
+          f"log {logs[-1:] if logs else []}")
+    return runs, steps, launched
 
 
 def phase_moe(card_line):
@@ -4273,10 +4414,14 @@ def phase_moe(card_line):
     times = {(load, k, n): time_grouped(k, n, load, flush, evict, names)
              for load in MOE_TIMED for k, n in MOE_WIDTHS}
     print(f"[moe] kernels seen while timing: {sorted(names)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    row_times = {load: time_rows(load, flush, evict)
+                 for load in MOE_ROW_LOADS}
     del flush, evict
     gc.collect()
     torch.cuda.empty_cache()
-    runs, steps = moe_main_path()
+    runs, steps, launched = moe_main_path()
     rows = []
     for v in ("fwd", "dx", "dw"):
         mean = [times[("mean", k, n)][v] for k, n in MOE_WIDTHS]
@@ -4294,11 +4439,30 @@ def phase_moe(card_line):
             "library_ms": sum(r["ms"] for r in mean),
             "wrapper_launches": None,
             "launches_by_path": {"moe_main": runs[v]}})
+    for name, r in row_times["mean"].items():
+        wrapper = name.replace("_f32", "")
+        rows.append({
+            "name": f"moe_{name}", "route": "cuda",
+            "source": "cs744_ddp_tpu_torch/ops/csrc/moe_rows.cu",
+            "replaces": "none: the JAX package runs no expert layer",
+            "launches": launched[wrapper], "max_abs_err": None,
+            "max_rel_err": None, "max_bf16_steps": r["gap"],
+            "ms": r["ms"], "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "wrapper_launches": launched[wrapper],
+            "launches_by_path": {"moe_main": launched[wrapper]},
+            "heaviest": {k: row_times["heaviest"][name][k]
+                         for k in ("ms", "device_ms", "plain_ms",
+                                   "bound_ms")}})
     print(f"[moe] {card_line}: ms, device_ms, plain_ms and bound_ms are one "
           f"expert layer's two products of each kind (gate-and-up and "
           f"down) at the mean load, {sum(MOE_LOADS['mean'])} held rows; "
           f"launches the runs counted on the device in the main path's "
-          f"{steps} steps")
+          f"{steps} steps; the moe_* row kernels one launch each at "
+          f"{MOE_ROW_LOADS['mean']} held rows (\"heaviest\": "
+          f"{MOE_ROW_LOADS['heaviest']}), launches their wrappers' in the "
+          f"main path (eager and captured, each once)")
     return rows
 
 

@@ -345,7 +345,7 @@ class MoE(nn.Module):
             local = experts - c.first_held
             held = (local >= 0) & (local < c.held_experts)
             group = torch.where(held, local, c.held_experts).reshape(-1)
-            order, offsets = moe.sort_rows(group, c.held_experts)
+            order, offsets, inv = moe.sort_rows(group, c.held_experts)
             moe.count_rows(offsets)
             row_weight = torch.where(held.reshape(-1), weights.reshape(-1),
                                      0.0).index_select(0, order)
@@ -353,7 +353,7 @@ class MoE(nn.Module):
                               rounding_mode="floor")
         with profiler_range("moe_experts"):
             routed = moe.routed_experts(x, row_weight, self.w13, self.w2,
-                                        token, offsets)
+                                        token, offsets, inv)
         with profiler_range("moe_combine"):
             out = routed.to(x.dtype) + self.shared_experts(x)
         return out.reshape(shape)

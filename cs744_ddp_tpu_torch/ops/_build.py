@@ -21,7 +21,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("bnpool.cu",)
+SOURCES = ("bnpool.cu", "moe_rows.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -38,6 +38,15 @@ SIGNATURES = {
            for t in ("f32", "bf16")},
         **{f"bnpool_norm_pool_{t}": [_P] * 7 + [_I] * 6 + [_P] * 2
            for t in ("f32", "bf16")},
+    },
+    "moe_rows.cu": {
+        **{f"moe_gather_rows_{t}": [_P] * 3 + [_I, _P] + [_I] * 3 + [_P] * 2
+           for t in ("f32", "bf16")},
+        "moe_swiglu_rows": [_P] * 2 + [_I, _P] + [_I] * 3 + [_P] * 2,
+        "moe_combine_tokens": [_P] * 4 + [_I, _P] + [_I] * 4 + [_P] * 2,
+        "moe_combine_token_grads": [_P] * 3 + [_I, _P] + [_I] * 4 + [_P] * 2,
+        "moe_rows_backward": [_P] * 4 + [_I] + [_P] * 3 + [_I] * 3
+        + [_P] * 2,
     },
 }
 

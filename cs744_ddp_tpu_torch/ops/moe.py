@@ -17,8 +17,15 @@ device.
       row scaled by its router weight and added back to token order, with
       a backward that keeps only token-order tensors, the row order and the
       offsets, and recomputes the rows' gate-and-up product;
-  ``sort_rows(expert, groups)``: the row order and the offsets, from a
-      device histogram.
+  ``sort_rows(expert, groups)``: the row order, the offsets (from a
+      device histogram) and the inverse permutation.
+
+The expert layer's row-wise work (gathers, SwiGLU, the weighted combine
+back to token order and the backward's fused row pass) runs on CUDA
+tensors as hand-written kernels (``csrc/moe_rows.cu``) that read the held
+count ``offsets[-1]`` on the device and touch no row past it; each has its
+plain PyTorch version beside it (``*_reference``), which CPU and ``meta``
+tensors take and which works over every row of the static buffers.
 
 No kernel of the TPU package corresponds (the JAX package runs no expert
 layer).  On CUDA tensors each product is one call of the library's grouped
@@ -34,7 +41,8 @@ no offset on the host.
 Every product on CUDA counts its runs and FLOPs on the device
 (``executed_counts``) just before its launch, so a graph's replays count
 and the plain version counts nothing; the expert layer counts its held
-rows and its largest group's rows once a forward, on any device.
+rows and its largest group's rows once a forward, on any device; every
+row kernel adds the held rows and its buffer's static rows as it runs.
 """
 
 from __future__ import annotations
@@ -44,13 +52,17 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import _build
+
 # What ``executed_counts`` reports: runs of each product on CUDA (the
 # forward, the backward's input and weight gradients, and the forward
 # recomputed in the expert layer's backward), the FLOPs of every such run
-# (2 x rows x K x N), and per expert-layer forward its held rows and its
-# largest group's rows.
+# (2 x rows x K x N), per expert-layer forward its held rows and its
+# largest group's rows, and over every row kernel's run the held rows it
+# worked on and the static rows of its buffers (adjacent: the kernels add
+# to both through one pointer).
 RUNS = ("fwd", "dx", "dw", "fwd_recompute")
-KEYS = RUNS + ("flops", "rows", "rows_max")
+KEYS = RUNS + ("flops", "rows", "rows_max", "row_rows", "row_capacity")
 
 # Counters by device index: int64 [len(KEYS)], made at the first eager
 # call on a device.
@@ -90,9 +102,16 @@ def count_rows(offsets: torch.Tensor) -> None:
 
 def reset_counts() -> None:
     """Zero every device's counter (in place: a captured graph keeps
-    adding to it)."""
+    adding to it) and the row kernels' launch counts."""
     for counter in _COUNTERS.values():
         counter.zero_()
+    _LAUNCHES.update(dict.fromkeys(ROW_KERNELS, 0))
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches of each row kernel's wrapper so far (``ROW_KERNELS``):
+    eager launches and launches recorded into a CUDA graph, each once."""
+    return dict(_LAUNCHES)
 
 
 def executed_counts() -> Dict[str, int]:
@@ -110,17 +129,22 @@ def executed_counts() -> Dict[str, int]:
 # ---------------------------------------------------------------------------
 
 def sort_rows(group: torch.Tensor, groups: int
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(order, offsets) of ``group`` [R] int64, each row's group in
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(order, offsets, inv) of ``group`` [R] int64, each row's group in
     ``0 .. groups`` (``groups`` marks a row of no group): ``order`` [R]
     int64 the rows by group, stably, the rows of no group last; ``offsets``
-    int32 [groups + 1] from a device histogram (no host read)."""
+    int32 [groups + 1] from a device histogram; ``inv`` int32 [R] each
+    row's position in ``order`` (``inv[order] == arange(R)``).  No host
+    read."""
     order = torch.sort(group, stable=True).indices
     hist = torch.zeros(groups + 1, dtype=torch.int64, device=group.device)
     hist.scatter_add_(0, group, torch.ones_like(group))
     offsets = torch.zeros(groups + 1, dtype=torch.int32, device=group.device)
     offsets[1:] = torch.cumsum(hist[:groups], 0)
-    return order, offsets
+    inv = torch.empty(order.shape, dtype=torch.int32, device=group.device)
+    inv.scatter_(0, order, torch.arange(order.shape[0], dtype=torch.int32,
+                                        device=group.device))
+    return order, offsets, inv
 
 
 # ---------------------------------------------------------------------------
@@ -247,7 +271,7 @@ def grouped_mm(x: torch.Tensor, w: torch.Tensor,
     return GroupedMM.apply(x, w, offsets)
 
 
-# Rows a step of the expert layer's f32 row-wise work takes: the static
+# Rows a step of the plain version's f32 row-wise work takes: the static
 # worst case is tokens x top-k rows (294,912 at the Moonlight cell), whose
 # f32 [rows, hidden] products would each take 2.4 GB at once.
 CHUNK_ROWS = 1 << 16
@@ -258,10 +282,6 @@ def _chunks(n: int):
             for lo in range(0, n, CHUNK_ROWS)]
 
 
-def _swiglu(gu: torch.Tensor, width: int) -> torch.Tensor:
-    return F.silu(gu[:, :width]) * gu[:, width:]
-
-
 def _destinations(token: torch.Tensor, offsets: torch.Tensor, tokens: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(each row's token for a scatter back to token order, the rows past
@@ -269,6 +289,262 @@ def _destinations(token: torch.Tensor, offsets: torch.Tensor, tokens: int
     past = torch.arange(token.shape[0], device=token.device) >= offsets[-1]
     return torch.where(past, tokens, token), past
 
+
+# ---------------------------------------------------------------------------
+# Row-wise work: plain version (CPU and meta), over every row
+# ---------------------------------------------------------------------------
+
+def gather_rows_reference(src, token, offsets, dtype) -> torch.Tensor:
+    """[R, H] in ``dtype``: row p is ``src[token[p]]`` rounded once."""
+    return src.to(dtype).index_select(0, token)
+
+
+def swiglu_rows_reference(gu, width: int, offsets) -> torch.Tensor:
+    """[R, width]: ``silu(g) * u`` of ``gu = [g | u]``, each rounded."""
+    return F.silu(gu[:, :width]) * gu[:, width:]
+
+
+def combine_tokens_reference(ys, weight, token, inv, offsets,
+                             tokens: int) -> torch.Tensor:
+    """[T, H] f32: each token's rows of ``ys`` times their router weights,
+    summed; the rows past the last group sent to a dropped row."""
+    dest, _ = _destinations(token, offsets, tokens)
+    out = torch.zeros((tokens + 1, ys.shape[1]), dtype=torch.float32,
+                      device=ys.device)
+    for rows in _chunks(token.shape[0]):
+        out.index_add_(0, dest[rows], ys[rows] * weight[rows, None])
+    return out[:tokens]
+
+
+def combine_token_grads_reference(dxs, token, inv, offsets, tokens: int,
+                                  dtype) -> torch.Tensor:
+    """[T, H] in ``dtype``: each token's rows of ``dxs`` summed in f32."""
+    dest, _ = _destinations(token, offsets, tokens)
+    dx = torch.zeros((tokens + 1, dxs.shape[1]), dtype=torch.float32,
+                     device=dxs.device)
+    for rows in _chunks(token.shape[0]):
+        dx.index_add_(0, dest[rows], dxs[rows].float())
+    return dx[:-1].to(dtype)
+
+
+def rows_backward_reference(gu, dh_unit, weight, offsets
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """(d_weight [R] f32, hw [R, I], dgu [R, 2I]) from the rows' gate and
+    up product ``gu``, their gradient before the router weight
+    ``dh_unit`` and the weights: d_weight = <dh_unit, h> (zero past the
+    last group), hw = h * weight, dgu the SwiGLU's backward of
+    dh = dh_unit * weight."""
+    width = dh_unit.shape[1]
+    g, u = gu[:, :width], gu[:, width:]
+    s = F.silu(g)
+    h = s * u
+    d_weight = torch.empty(weight.shape, dtype=torch.float32,
+                           device=gu.device)
+    dh, hw = torch.empty_like(dh_unit), torch.empty_like(h)
+    for rows in _chunks(weight.shape[0]):
+        d_weight[rows] = (dh_unit[rows] * h[rows].float()).sum(-1)
+        dh[rows] = dh_unit[rows] * weight[rows, None]
+        hw[rows] = h[rows] * weight[rows, None]
+    del h
+    past = torch.arange(weight.shape[0], device=gu.device) >= offsets[-1]
+    d_weight.masked_fill_(past, 0)
+    dgu = torch.empty_like(gu)
+    torch.mul(dh, s, out=dgu[:, width:])
+    dgu[:, :width] = torch.ops.aten.silu_backward(dh * u, g)
+    return d_weight, hw, dgu
+
+
+# ---------------------------------------------------------------------------
+# Row-wise work: CUDA kernels (csrc/moe_rows.cu), held rows only
+# ---------------------------------------------------------------------------
+
+_SOURCE = "moe_rows.cu"
+# Each kernel: blocks of _ROW_THREADS threads, one row (or token) a warp,
+# walking its rows grid-stride in at most _ROW_BLOCKS blocks (eight for
+# each of an H100's 132 streaming multiprocessors).  The grid comes from
+# the buffer's static shape, so a captured graph replays it; a warp past
+# the held count stops at once.
+_ROW_THREADS = 256
+_ROW_BLOCKS = 132 * 8
+_MAX_TOP_K = 8
+# Each wrapper: the keys of ``launch_counts``.
+ROW_KERNELS = ("gather_rows", "swiglu_rows", "combine_tokens",
+               "combine_token_grads", "rows_backward")
+# Each wrapper's kernel in a torch.profiler trace, by name fragment.
+PROFILED = {"gather_rows": "gather_rows_kernel",
+            "swiglu_rows": "swiglu_rows_kernel",
+            "combine_tokens": "combine_tokens_kernel<true>",
+            "combine_token_grads": "combine_tokens_kernel<false>",
+            "rows_backward": "rows_backward_kernel"}
+_LAUNCHES: Dict[str, int] = dict.fromkeys(ROW_KERNELS, 0)
+
+
+def _blocks(rows: int) -> int:
+    return max(1, min(-(-rows // (_ROW_THREADS // 32)), _ROW_BLOCKS))
+
+
+def _check_rows(name: str, width: int, offsets: torch.Tensor, *tensors
+                ) -> None:
+    """What the row kernels take: rows a whole number of 16-byte bf16
+    vectors wide, int32 offsets, every tensor contiguous, 16-byte aligned
+    and on one card."""
+    if width % 8:
+        raise ValueError(f"{name}: rows of {width} elements; the kernel "
+                         f"takes a multiple of 8")
+    if offsets.dtype != torch.int32:
+        raise TypeError(f"{name}: offsets must be int32, got {offsets.dtype}")
+    for t in (offsets,) + tensors:
+        if t.device != offsets.device:
+            raise ValueError(f"{name}: tensors on several devices: "
+                             f"{offsets.device}, {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: every tensor must be contiguous and "
+                             f"16-byte aligned")
+
+
+def _launch(name: str, entry: str, device: torch.device, *args) -> None:
+    """Launch C entry point ``entry`` on the current stream with the row
+    counters; count the launch."""
+    counter = _counter(device)
+    rows_at = counter.data_ptr() + counter.element_size() * \
+        KEYS.index("row_rows")
+    lib = _build.library(_SOURCE)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*args, rows_at, stream)
+    _build.check(lib, err, name)
+    _LAUNCHES[name] += 1
+
+
+def _refuse(name: str, t: torch.Tensor) -> None:
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the kernel takes bf16 rows, got {t.dtype}")
+
+
+def gather_rows(src, token, offsets, dtype) -> torch.Tensor:
+    """[R, H] in ``dtype``: row p is ``src[token[p]]`` (``src`` [T, H]),
+    rounded once.  CUDA tensors launch the gather kernel (bf16 out, ``src``
+    bf16 or f32), which writes rows ``p < offsets[-1]`` only; other tensors
+    take ``gather_rows_reference``."""
+    if not src.is_cuda:
+        return gather_rows_reference(src, token, offsets, dtype)
+    if dtype != torch.bfloat16 or src.dtype not in (torch.bfloat16,
+                                                    torch.float32):
+        raise TypeError(f"gather_rows: bf16 rows from bf16 or f32, got "
+                        f"{src.dtype} -> {dtype}")
+    src = src.contiguous()
+    rows, width = token.shape[0], src.shape[1]
+    dst = torch.empty((rows, width), dtype=dtype, device=src.device)
+    _check_rows("gather_rows", width, offsets, src, token, dst)
+    if token.dtype != torch.int64:
+        raise TypeError(f"gather_rows: token must be int64, got "
+                        f"{token.dtype}")
+    suffix = "bf16" if src.dtype == torch.bfloat16 else "f32"
+    _launch("gather_rows", f"moe_gather_rows_{suffix}", src.device,
+            src.data_ptr(), token.data_ptr(), offsets.data_ptr(),
+            offsets.shape[0] - 1, dst.data_ptr(), rows, width, _blocks(rows))
+    return dst
+
+
+def swiglu_rows(gu, width: int, offsets) -> torch.Tensor:
+    """[R, width]: ``bf16(bf16(silu(g)) * u)`` of ``gu = [g | u]``.  CUDA
+    tensors launch the SwiGLU kernel over rows ``p < offsets[-1]``;
+    other tensors take ``swiglu_rows_reference``."""
+    if not gu.is_cuda:
+        return swiglu_rows_reference(gu, width, offsets)
+    _refuse("swiglu_rows", gu)
+    rows = gu.shape[0]
+    if gu.shape[1] != 2 * width:
+        raise ValueError(f"swiglu_rows: gu {tuple(gu.shape)} is not "
+                         f"[rows, 2 x {width}]")
+    h = torch.empty((rows, width), dtype=gu.dtype, device=gu.device)
+    _check_rows("swiglu_rows", width, offsets, gu, h)
+    _launch("swiglu_rows", "moe_swiglu_rows", gu.device, gu.data_ptr(),
+            offsets.data_ptr(), offsets.shape[0] - 1, h.data_ptr(), rows,
+            width, _blocks(rows))
+    return h
+
+
+def _top_k(name: str, rows: int, tokens: int) -> int:
+    k = rows // max(tokens, 1)
+    if k * tokens != rows or not 0 < k <= _MAX_TOP_K:
+        raise ValueError(f"{name}: {rows} rows are not 1 to {_MAX_TOP_K} "
+                         f"slots of {tokens} tokens")
+    return k
+
+
+def combine_tokens(ys, weight, token, inv, offsets, tokens: int
+                   ) -> torch.Tensor:
+    """[T, H] f32: ``out[t]`` the sum over token t's slots j, in order, of
+    ``weight[p] * ys[p]`` with ``p = inv[t*k + j]``, held rows only.  CUDA
+    tensors launch the combine kernel (each token row written once, no
+    atomics); other tensors take ``combine_tokens_reference``."""
+    if not ys.is_cuda:
+        return combine_tokens_reference(ys, weight, token, inv, offsets,
+                                        tokens)
+    _refuse("combine_tokens", ys)
+    k = _top_k("combine_tokens", ys.shape[0], tokens)
+    out = torch.empty((tokens, ys.shape[1]), dtype=torch.float32,
+                      device=ys.device)
+    _check_rows("combine_tokens", ys.shape[1], offsets, ys, weight, inv, out)
+    _launch("combine_tokens", "moe_combine_tokens", ys.device, ys.data_ptr(),
+            weight.data_ptr(), inv.data_ptr(), offsets.data_ptr(),
+            offsets.shape[0] - 1, out.data_ptr(), tokens, k, ys.shape[1],
+            _blocks(tokens))
+    return out
+
+
+def combine_token_grads(dxs, token, inv, offsets, tokens: int, dtype
+                        ) -> torch.Tensor:
+    """[T, H] in ``dtype``: each token's held rows of ``dxs`` summed in
+    f32 in slot order, rounded once.  CUDA tensors launch the combine
+    kernel unweighted (bf16 out); other tensors take
+    ``combine_token_grads_reference``."""
+    if not dxs.is_cuda:
+        return combine_token_grads_reference(dxs, token, inv, offsets,
+                                             tokens, dtype)
+    _refuse("combine_token_grads", dxs)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"combine_token_grads: bf16 out, got {dtype}")
+    k = _top_k("combine_token_grads", dxs.shape[0], tokens)
+    dx = torch.empty((tokens, dxs.shape[1]), dtype=dtype, device=dxs.device)
+    _check_rows("combine_token_grads", dxs.shape[1], offsets, dxs, inv, dx)
+    _launch("combine_token_grads", "moe_combine_token_grads", dxs.device,
+            dxs.data_ptr(), inv.data_ptr(), offsets.data_ptr(),
+            offsets.shape[0] - 1, dx.data_ptr(), tokens, k, dxs.shape[1],
+            _blocks(tokens))
+    return dx
+
+
+def rows_backward(gu, dh_unit, weight, offsets
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(d_weight, hw, dgu) as ``rows_backward_reference`` gives them.  CUDA
+    tensors launch one fused pass over the held rows (d_weight zero past
+    them, hw and dgu unwritten there); other tensors take the plain
+    version."""
+    if not gu.is_cuda:
+        return rows_backward_reference(gu, dh_unit, weight, offsets)
+    _refuse("rows_backward", gu)
+    _refuse("rows_backward", dh_unit)
+    rows, width = dh_unit.shape
+    if tuple(gu.shape) != (rows, 2 * width):
+        raise ValueError(f"rows_backward: gu {tuple(gu.shape)} against "
+                         f"dh_unit {tuple(dh_unit.shape)}")
+    d_weight = torch.empty(rows, dtype=torch.float32, device=gu.device)
+    hw, dgu = torch.empty_like(dh_unit), torch.empty_like(gu)
+    _check_rows("rows_backward", width, offsets, gu, dh_unit, weight,
+                d_weight, hw, dgu)
+    _launch("rows_backward", "moe_rows_backward", gu.device, gu.data_ptr(),
+            dh_unit.data_ptr(), weight.data_ptr(), offsets.data_ptr(),
+            offsets.shape[0] - 1, d_weight.data_ptr(), hw.data_ptr(),
+            dgu.data_ptr(), rows, width, _blocks(rows))
+    return d_weight, hw, dgu
+
+
+# ---------------------------------------------------------------------------
+# The expert layer
+# ---------------------------------------------------------------------------
 
 class RoutedExperts(torch.autograd.Function):
     """The held experts' part of an expert layer, f32 ``[T, H]``:
@@ -278,73 +554,51 @@ class RoutedExperts(torch.autograd.Function):
 
     ``x`` [T, H] the layer's input in the activation dtype, ``weight`` [R]
     f32 each row's router weight (0 for a row of no group), ``token`` [R]
-    int64 each row's token, rows ordered by held expert (``sort_rows``),
-    ``w13`` [E, H, 2I] (gate then up) and ``w2`` [E, I, H] f32 masters.
-    Saved for the backward: ``x`` (which the shared expert keeps anyway),
-    the row weights, order and offsets, and the weights' casts; the rows'
+    int64 each row's token, rows ordered by held expert, and ``inv`` [R]
+    int32 the sorted position of flat row t*k + j (``sort_rows``); ``w13``
+    [E, H, 2I] (gate then up) and ``w2`` [E, I, H] f32 masters.  Saved for
+    the backward: ``x`` (which the shared expert keeps anyway), the row
+    weights, order, inverse and offsets, and the weights' casts; the rows'
     gate-and-up product is recomputed there.  The products take a row's
     router weight by the identity d weight_r = <dout[token_r] W2^T, h_r>,
-    so the backward recomputes no down product.  Row-wise f32 work goes
-    ``CHUNK_ROWS`` rows at a time, and each temporary is freed once used:
-    the worst-case buffers are 8x the mean load.  The rows past the last
-    group are never zeroed: on CUDA the library leaves them unwritten, so
-    the scatters back to token order send them to one row past the tokens
-    (``_destinations``), which is dropped, and their router-weight
-    gradient is zero."""
+    so the backward recomputes no down product.  Each row-wise pass is a
+    kernel of held rows on CUDA, its plain version elsewhere.  The rows
+    past the last group are never zeroed: the library and the kernels
+    leave them unwritten and nothing reads them (the plain version's
+    scatters send them to a dropped row), and their router-weight gradient
+    is zero."""
 
     @staticmethod
-    def forward(ctx, x, weight, w13, w2, token, offsets):
+    def forward(ctx, x, weight, w13, w2, token, offsets, inv):
         dt, tokens = x.dtype, x.shape[0]
         w13c, w2c = w13.to(dt), w2.to(dt)
-        xs = x.index_select(0, token)
-        h = _swiglu(_mm(xs, w13c, offsets, "fwd"), w2.shape[1])
+        xs = gather_rows(x, token, offsets, dt)
+        h = swiglu_rows(_mm(xs, w13c, offsets, "fwd"), w2.shape[1], offsets)
         del xs
         ys = _mm(h, w2c, offsets, "fwd")
-        dest, _ = _destinations(token, offsets, tokens)
-        out = torch.zeros((tokens + 1, x.shape[1]), dtype=torch.float32,
-                          device=x.device)
-        for rows in _chunks(token.shape[0]):
-            out.index_add_(0, dest[rows], ys[rows] * weight[rows, None])
-        ctx.save_for_backward(x, weight, w13c, w2c, token, offsets)
-        return out[:tokens]
+        del h
+        ctx.save_for_backward(x, weight, w13c, w2c, token, offsets, inv)
+        return combine_tokens(ys, weight, token, inv, offsets, tokens)
 
     @staticmethod
     def backward(ctx, dout):
-        x, weight, w13c, w2c, token, offsets = ctx.saved_tensors
-        dt, width, groups = x.dtype, w2c.shape[1], w2c.shape[0]
-        xs = x.index_select(0, token)
+        x, weight, w13c, w2c, token, offsets, inv = ctx.saved_tensors
+        dt, groups = x.dtype, w2c.shape[0]
+        xs = gather_rows(x, token, offsets, dt)
         gu = _mm(xs, w13c, offsets, "fwd_recompute")
-        g, u = gu[:, :width], gu[:, width:]
-        s = F.silu(g)
-        h = s * u
         # The combine's gradient at each row, before its router weight.
-        dyu = dout.to(dt).index_select(0, token)
+        dyu = gather_rows(dout, token, offsets, dt)
         dh_unit = _mm(dyu, w2c.transpose(1, 2), offsets, "dx")
-        d_weight = torch.empty(token.shape, dtype=torch.float32,
-                               device=x.device)
-        dh, hw = torch.empty_like(dh_unit), torch.empty_like(h)
-        for rows in _chunks(token.shape[0]):
-            d_weight[rows] = (dh_unit[rows] * h[rows].float()).sum(-1)
-            dh[rows] = dh_unit[rows] * weight[rows, None]
-            hw[rows] = h[rows] * weight[rows, None]
-        del dh_unit, h
-        dest, past = _destinations(token, offsets, x.shape[0])
-        d_weight.masked_fill_(past, 0)
+        d_weight, hw, dgu = rows_backward(gu, dh_unit, weight, offsets)
+        del gu, dh_unit
         dw2 = _dw(hw, dyu, offsets, groups)
         del hw, dyu
-        dgu = torch.empty_like(gu)
-        torch.mul(dh, s, out=dgu[:, width:])
-        dgu[:, :width] = torch.ops.aten.silu_backward(dh * u, g)
-        del dh, s, gu, g, u
         dxs = _mm(dgu, w13c.transpose(1, 2), offsets, "dx")
         dw13 = _dw(xs, dgu, offsets, groups)
         del dgu, xs
-        dx = torch.zeros((x.shape[0] + 1, x.shape[1]), dtype=torch.float32,
-                         device=x.device)
-        for rows in _chunks(token.shape[0]):
-            dx.index_add_(0, dest[rows], dxs[rows].float())
-        return dx[:-1].to(dt), d_weight, dw13, dw2, None, None
+        dx = combine_token_grads(dxs, token, inv, offsets, x.shape[0], dt)
+        return dx, d_weight, dw13, dw2, None, None, None
 
 
-def routed_experts(x, weight, w13, w2, token, offsets) -> torch.Tensor:
-    return RoutedExperts.apply(x, weight, w13, w2, token, offsets)
+def routed_experts(x, weight, w13, w2, token, offsets, inv) -> torch.Tensor:
+    return RoutedExperts.apply(x, weight, w13, w2, token, offsets, inv)

@@ -285,10 +285,128 @@ def test_rows_past_the_groups_never_reach_the_layer(monkeypatch):
 
 def test_sort_rows_orders_by_group_with_device_offsets():
     group = torch.tensor([2, 4, 0, 2, 4, 1, 0, 2])
-    order, offsets = moe.sort_rows(group, 4)
+    order, offsets, _ = moe.sort_rows(group, 4)
     assert order.tolist() == [2, 6, 5, 0, 3, 7, 1, 4]
     assert offsets.dtype == torch.int32
     assert offsets.tolist() == [0, 2, 3, 6, 6]
+
+
+@pytest.mark.parametrize("rows,groups", [(8, 4), (96, 4), (1, 1), (50, 7)])
+def test_sort_rows_inverse_permutation(rows, groups):
+    """``inv`` is int32 and each row's position in ``order``:
+    ``inv[order] == arange``, so slot t*k + j of a token finds its sorted
+    row."""
+    group = torch.randint(0, groups + 1, (rows,),
+                          generator=torch.Generator().manual_seed(rows))
+    order, _, inv = moe.sort_rows(group, groups)
+    assert inv.dtype == torch.int32 and inv.shape == order.shape
+    assert torch.equal(inv[order], torch.arange(rows, dtype=torch.int32))
+    assert torch.equal(order[inv.long()], torch.arange(rows))
+
+
+def test_row_counters_present_and_zero_after_reset():
+    """``executed_counts`` carries the row kernels' held and static rows
+    (adjacent: the kernels add to both through one pointer); reset zeroes
+    them with every other count and the wrappers' launch counts."""
+    keys = moe.KEYS
+    assert keys.index("row_capacity") == keys.index("row_rows") + 1
+    counter = moe._counter(torch.device("cpu"))
+    counter.add_(3)
+    moe._LAUNCHES["gather_rows"] += 1
+    assert moe.executed_counts()["row_rows"] >= 3
+    moe.reset_counts()
+    counts = moe.executed_counts()
+    assert set(counts) == set(keys)
+    assert counts["row_rows"] == counts["row_capacity"] == 0
+    assert all(v == 0 for v in counts.values())
+    assert moe.launch_counts() == dict.fromkeys(moe.ROW_KERNELS, 0)
+
+
+class _FrozenRoutedExperts(torch.autograd.Function):
+    """The expert layer's row-wise work as the port wrote it before the
+    row kernels (plain PyTorch over every row): the yardstick that the
+    plain version stays bit for bit what it was."""
+
+    @staticmethod
+    def forward(ctx, x, weight, w13, w2, token, offsets):
+        dt, tokens = x.dtype, x.shape[0]
+        w13c, w2c = w13.to(dt), w2.to(dt)
+        xs = x.index_select(0, token)
+        gu = moe._mm(xs, w13c, offsets, "fwd")
+        h = F.silu(gu[:, :w2.shape[1]]) * gu[:, w2.shape[1]:]
+        ys = moe._mm(h, w2c, offsets, "fwd")
+        dest, _ = moe._destinations(token, offsets, tokens)
+        out = torch.zeros((tokens + 1, x.shape[1]), dtype=torch.float32)
+        for rows in moe._chunks(token.shape[0]):
+            out.index_add_(0, dest[rows], ys[rows] * weight[rows, None])
+        ctx.save_for_backward(x, weight, w13c, w2c, token, offsets)
+        return out[:tokens]
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, weight, w13c, w2c, token, offsets = ctx.saved_tensors
+        dt, width, groups = x.dtype, w2c.shape[1], w2c.shape[0]
+        xs = x.index_select(0, token)
+        gu = moe._mm(xs, w13c, offsets, "fwd_recompute")
+        g, u = gu[:, :width], gu[:, width:]
+        s = F.silu(g)
+        h = s * u
+        dyu = dout.to(dt).index_select(0, token)
+        dh_unit = moe._mm(dyu, w2c.transpose(1, 2), offsets, "dx")
+        d_weight = torch.empty(token.shape, dtype=torch.float32)
+        dh, hw = torch.empty_like(dh_unit), torch.empty_like(h)
+        for rows in moe._chunks(token.shape[0]):
+            d_weight[rows] = (dh_unit[rows] * h[rows].float()).sum(-1)
+            dh[rows] = dh_unit[rows] * weight[rows, None]
+            hw[rows] = h[rows] * weight[rows, None]
+        dest, past = moe._destinations(token, offsets, x.shape[0])
+        d_weight.masked_fill_(past, 0)
+        dw2 = moe._dw(hw, dyu, offsets, groups)
+        dgu = torch.empty_like(gu)
+        torch.mul(dh, s, out=dgu[:, width:])
+        dgu[:, :width] = torch.ops.aten.silu_backward(dh * u, g)
+        dxs = moe._mm(dgu, w13c.transpose(1, 2), offsets, "dx")
+        dw13 = moe._dw(xs, dgu, offsets, groups)
+        dx = torch.zeros((x.shape[0] + 1, x.shape[1]), dtype=torch.float32)
+        for rows in moe._chunks(token.shape[0]):
+            dx.index_add_(0, dest[rows], dxs[rows].float())
+        return dx[:-1].to(dt), d_weight, dw13, dw2, None, None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [None, 7])
+def test_plain_routed_experts_unchanged(chunk, dtype, monkeypatch):
+    """The plain version (CPU) of the expert layer, its row-wise passes
+    now split into the row kernels' plain versions: output and every
+    gradient bit for bit the frozen formulas', at the default chunk and at
+    chunks of 7 rows; rows of no group among the rows."""
+    if chunk is not None:
+        monkeypatch.setattr(moe, "CHUNK_ROWS", chunk)
+    gen = torch.Generator().manual_seed(23)
+    tokens, k, hidden, width, groups = 24, 4, 32, 16, 4
+    group = torch.randint(0, groups + 1, (tokens * k,), generator=gen)
+    order, offsets, inv = moe.sort_rows(group, groups)
+    weight = torch.where(group < groups, torch.rand(tokens * k,
+                                                    generator=gen), 0.0)
+    weight = weight.index_select(0, order)
+    token = torch.div(order, k, rounding_mode="floor")
+    x = torch.randn(tokens, hidden, generator=gen).to(dtype)
+    w13 = torch.randn(groups, hidden, 2 * width, generator=gen) * 0.2
+    w2 = torch.randn(groups, width, hidden, generator=gen) * 0.2
+    probe = torch.randn(tokens, hidden, generator=gen)
+
+    def run(fn, *extra):
+        leaves = [t.clone().requires_grad_(True) for t in (x, weight, w13,
+                                                           w2)]
+        out = fn(*leaves, token, offsets, *extra)
+        return [out.detach()] + list(torch.autograd.grad(
+            (out * probe).sum(), leaves))
+
+    want = run(_FrozenRoutedExperts.apply)
+    got = run(moe.routed_experts, inv)
+    assert int(offsets[-1]) < tokens * k
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 def test_model_step_reads_nothing_on_the_host(monkeypatch):
